@@ -1,0 +1,453 @@
+"""Smoke run of the PyTorch/CUDA port (lasso_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; each prints one line and any failure exits non-zero:
+  1. device and build: the card's name and power limit, and the seconds to
+     build every CUDA kernel from lasso_tpu_torch/csrc (one nvcc per source,
+     all started together);
+  2. K1 (Montgomery multiply) against its plain PyTorch version on the card,
+     Fr and Fp, n = 2^20, limb for limb, with both times;
+  3. K3 (fused Edwards add) against its plain version, n = 2^16 points
+     including P+P, P+identity and P+(-P), limbs and compressed bytes;
+  4. the golden and_4d / or_4d / xor_4d proofs on the card: proof and
+     commitment sha256 and lengths must equal tests/fixtures/golden_proofs.json;
+  5. the flagship main path: AND, C=1, M=2^16, s=2^14 (the halo2-comparison
+     shape): commit, prove twice (the second timed, with kernel launch
+     counts reset just before it, and a span breakdown), verify, reject a
+     tampered proof, check the l-variate commitment rows against the host
+     Pippenger, and profile one more prove for the card's busy share;
+  6. each kernel held against its plain version at the main path's own
+     dominant shape, then the `kernels` JSON line, the card line, and the
+     final status line.
+
+Needs one CUDA card; it imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
+# 32-bit rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+W = 16
+# 32-bit multiply instructions per Montgomery product (8x8 words, CIOS:
+# 2*8*8 + 8 wide products, two instructions each) and per point addition
+K1_OPS = 2 * (2 * 8 * 8 + 8)
+K3_OPS = 11 * K1_OPS
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_limbs(rng, n: int, field):
+    """n canonical elements of `field` as [n, 16] limbs: uniform limbs with
+    the top limb kept below the modulus' top limb, plus 0, 1 and p-1."""
+    import numpy as np
+
+    top = field.p_limbs[-1]
+    limbs = rng.integers(0, 1 << 16, size=(n, W), dtype=np.int64)
+    limbs[:, W - 1] %= top
+    if n >= 3:
+        limbs[0] = 0
+        limbs[1] = field.mont_one
+        limbs[2] = np.asarray(field.p_limbs)
+        limbs[2, 0] -= 1
+    return limbs.astype(np.int32)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this smoke run "
+              "needs a CUDA card", flush=True)
+        return 1
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    import lasso_tpu_torch.subtables.bitwise  # noqa: F401 (registers AND/OR/XOR)
+    from lasso_tpu_torch.curve import tcurve
+    from lasso_tpu_torch.curve.host import GENERATOR, Point, msm_host
+    from lasso_tpu_torch.field.tfield import TFp, TFr, unpack_ints
+    from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
+    from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
+                                             SparsePolynomialEvaluationProof)
+    from lasso_tpu_torch.ops import field_cuda
+    from lasso_tpu_torch.subprotocols.dot_product import _gens_device
+    from lasso_tpu_torch.subtables.base import get_strategy
+    from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
+    from lasso_tpu_torch.transcript.random_tape import RandomTape
+    from lasso_tpu_torch.utils import tracing
+    from lasso_tpu_torch.utils.errors import LassoError
+    from lasso_tpu_torch.utils.fixtures import gen_indices, gen_random_point
+    from lasso_tpu_torch.utils.serialize import (serialize_commitment,
+                                                 serialize_proof)
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    rng = np.random.default_rng(20241016)
+    t_start = time.perf_counter()
+
+    # -- 1. device and build ---------------------------------------------------
+    build_s = field_cuda.build()
+    regs = {}
+    for name in field_cuda.SOURCES:
+        log = field_cuda.build_log(name)
+        regs[name] = [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]
+    print(f"phase 1 device+build: card={card!r} kind={kind!r} "
+          f"build_s={build_s:.2f} ptxas={json.dumps(regs)}", flush=True)
+
+    # -- 2. K1 against its plain version ---------------------------------------
+    k1 = {"max_abs_err": 0}
+    for field in (TFr, TFp):
+        n = 1 << 20
+        a = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+        b = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+        b[0] = b[1]  # 0 * 1
+        b[2] = a[2]  # (p-1) * (p-1)
+        got = field_cuda.mont_mul_cuda(a, b, field.name)
+        want = field_cuda.mont_mul_plain(a, b, field.name)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        if err:
+            fail(f"K1 {field.name}: kernel differs from plain by {err}")
+        p, r_inv = field.host.p, field.host.r_inv
+        sa, sb, sg = (unpack_ints(x[:64]) for x in (a, b, got))
+        if any(g != x * y * r_inv % p for g, x, y in zip(sg, sa, sb)):
+            fail(f"K1 {field.name}: kernel differs from the host oracle")
+        ms = cuda_ms(lambda: field_cuda.mont_mul_cuda(a, b, field.name), 20)
+        plain = cuda_ms(lambda: field_cuda.mont_mul_plain(a, b, field.name), 3)
+        bnd, _ = bound_ms(3 * 64 * n, K1_OPS * n)
+        print(f"phase 2 K1 {field.name}: n={n} equal=True max_abs_err={err} "
+              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd:.4f}",
+              flush=True)
+        del a, b, got, want
+
+    # -- 3. K3 against its plain version ---------------------------------------
+    pool_n = 4096
+    host_pts = [GENERATOR]
+    for _ in range(pool_n - 1):
+        host_pts.append(host_pts[-1].add(GENERATOR))
+    pool_host = host_pts + [p.neg() for p in host_pts] + [Point.identity()]
+    pool = tcurve.from_host_points(pool_host, dev)  # [4, W, 2*pool_n + 1]
+    n3 = 1 << 16
+    p_idx = rng.integers(0, pool_n, size=n3)
+    q_idx = rng.integers(0, 2 * pool_n + 1, size=n3)
+    kind_of = rng.integers(0, 4, size=n3)
+    q_idx = np.where(kind_of == 1, p_idx, q_idx)              # P + P
+    q_idx = np.where(kind_of == 2, 2 * pool_n, q_idx)         # P + identity
+    q_idx = np.where(kind_of == 3, p_idx + pool_n, q_idx)     # P + (-P)
+    pp = pool[..., torch.as_tensor(p_idx, device=dev)][None].contiguous()
+    qq = pool[..., torch.as_tensor(q_idx, device=dev)][None].contiguous()
+    got = field_cuda.padd_cuda(pp, qq)
+    want = field_cuda.padd_plain(pp, qq)
+    torch.cuda.synchronize()
+    k3_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if k3_err:
+        fail(f"K3: kernel differs from plain by {k3_err}")
+    got_c = tcurve.compress_points_device(got[0]).cpu().numpy()
+    want_c = tcurve.compress_points_device(want[0]).cpu().numpy()
+    if not np.array_equal(got_c, want_c):
+        fail("K3: compressed bytes differ from the plain version's")
+    for j in range(256):
+        h = pool_host[p_idx[j]].add(pool_host[q_idx[j]])
+        if bytes(got_c[j].astype(np.uint8)) != h.to_compressed_bytes():
+            fail(f"K3: point {j} differs from the host oracle")
+    ms = cuda_ms(lambda: field_cuda.padd_cuda(pp, qq), 20)
+    plain = cuda_ms(lambda: field_cuda.padd_plain(pp, qq), 3)
+    bnd, _ = bound_ms(3 * 256 * n3, K3_OPS * n3)
+    print(f"phase 3 K3: n={n3} equal=True max_abs_err={k3_err} "
+          f"compressed_equal=True cases=(P+Q, P+P, P+O, P-P) ms={ms:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.4f}", flush=True)
+    del pp, qq, got, want, pool
+
+    # -- 4. golden proofs on the card -------------------------------------------
+    with open(os.path.join(HERE, "tests", "fixtures", "golden_proofs.json")) as f:
+        golden = json.load(f)
+
+    def prove_bytes(strategy_name, c, log_m, log_s):
+        m, s = 1 << log_m, 1 << log_s
+        strategy = get_strategy(strategy_name, c, m)
+        nz = gen_indices(s, m, c)
+        r = gen_random_point(log_s)
+        dense = DensifiedRepresentation(nz, log_m, c, device=dev)
+        gens = SparsePolyCommitmentGens.new(
+            b"gens_sparse_poly", c, s, strategy.num_memories, log_m, device=dev)
+        comm = dense.commit(gens)
+        proof = SparsePolynomialEvaluationProof.prove(
+            dense, r, gens, strategy, ProofTranscript(b"example"),
+            RandomTape(b"proof"))
+        return proof, comm, dense, gens, r, strategy
+
+    def entry(proof, comm):
+        pb, cb = serialize_proof(proof), serialize_commitment(comm)
+        return {"proof_sha256": hashlib.sha256(pb).hexdigest(),
+                "proof_len": len(pb),
+                "commitment_sha256": hashlib.sha256(cb).hexdigest(),
+                "commitment_len": len(cb)}
+
+    for name in ("and_4d", "or_4d", "xor_4d"):
+        proof, comm, _, gens, r, _ = prove_bytes(name.split("_")[0], 4, 4, 4)
+        got_e = entry(proof, comm)
+        if got_e != golden[name]:
+            fail(f"golden {name}: {got_e} != {golden[name]}")
+        proof.verify(comm, r, gens, ProofTranscript(b"example"))
+    print("phase 4 golden: and_4d=equal or_4d=equal xor_4d=equal "
+          "(proof+commitment sha256 and lengths; verify accepted)", flush=True)
+
+    # -- 5. the flagship main path -----------------------------------------------
+    log_m, log_s = 16, 14
+    m, s = 1 << log_m, 1 << log_s
+    strategy = get_strategy("and", 1, m)
+    nz = gen_indices(s, m, 1)
+    r = gen_random_point(log_s)
+    t0 = time.perf_counter()
+    dense = DensifiedRepresentation(nz, log_m, 1, device=dev)
+    gens = SparsePolyCommitmentGens.new(
+        b"gens_sparse_poly", 1, s, strategy.num_memories, log_m, device=dev)
+    comm = dense.commit(gens)
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+
+    # every l-variate commitment row against the native host Pippenger
+    z = dense.combined_l_variate_polys.z
+    cols = z.shape[0] // len(comm.l_variate_polys_commitment.C)
+    bases = tcurve.to_host_points(
+        _gens_device(gens.gens_combined_l_variate.gens.gens_n, dev)[..., :cols])
+    rows = TFr.decode(z)
+    for i, c_pt in enumerate(comm.l_variate_polys_commitment.C):
+        if msm_host(bases, rows[i * cols:(i + 1) * cols]) != c_pt:
+            fail(f"flagship commitment row {i} differs from the host MSM")
+
+    t0 = time.perf_counter()
+    SparsePolynomialEvaluationProof.prove(
+        dense, r, gens, strategy, ProofTranscript(b"example"),
+        RandomTape(b"proof"))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    shapes = {"mont_mul": collections.Counter(), "padd": collections.Counter()}
+    orig_mm, orig_pa = field_cuda.mont_mul_cuda, field_cuda.padd_cuda
+
+    def rec_mm(a, b, field):
+        shapes["mont_mul"][(tuple(a.shape), tuple(b.shape), field)] += 1
+        return orig_mm(a, b, field)
+
+    def rec_pa(p, q):
+        shapes["padd"][tuple(p.shape)] += 1
+        return orig_pa(p, q)
+
+    field_cuda.reset_launch_counts()
+    field_cuda.mont_mul_cuda, field_cuda.padd_cuda = rec_mm, rec_pa
+    tracing.reset_spans()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = SparsePolynomialEvaluationProof.prove(
+        dense, r, gens, strategy, ProofTranscript(b"example"),
+        RandomTape(b"proof"))
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    field_cuda.mont_mul_cuda, field_cuda.padd_cuda = orig_mm, orig_pa
+    prove_counts = dict(field_cuda.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    spans = collections.Counter()
+
+    def walk(sp):
+        spans[sp.name] += sp.duration * 1e3
+        for ch in sp.children:
+            walk(ch)
+
+    for root in tracing.span_tree():
+        walk(root)
+    if prove_counts["mont_mul"] <= 0 or prove_counts["padd"] <= 0:
+        fail(f"flagship prove did not launch every kernel: {prove_counts}")
+
+    field_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    proof.verify(comm, r, gens, ProofTranscript(b"example"))
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_counts = dict(field_cuda.launch_counts)
+
+    pb = serialize_proof(proof)
+    proof.primary_sumcheck.claimed_evaluation = (
+        proof.primary_sumcheck.claimed_evaluation + 1) % (2**252)
+    try:
+        proof.verify(comm, r, gens, ProofTranscript(b"example"))
+    except (LassoError, AssertionError):
+        rejected = True
+    else:
+        rejected = False
+    if not rejected:
+        fail("flagship: verify accepted a tampered proof")
+    print(f"phase 5 flagship AND C=1 M=2^16 s=2^14: commit_s={commit_s:.3f} "
+          f"first_prove_s={first_s:.3f} prove_s={prove_s:.3f} "
+          f"verify_s={verify_s:.3f} prove_peak_mem_gib={peak_gib:.3f} "
+          f"verify=accepted tampered=rejected "
+          f"commit_rows_vs_host=equal proof_len={len(pb)} "
+          f"proof_sha256={hashlib.sha256(pb).hexdigest()} "
+          f"prove_launches={json.dumps(prove_counts)} "
+          f"verify_launches={json.dumps(verify_counts)}", flush=True)
+    print("phase 5 prove spans (inclusive ms, summed by name): "
+          + json.dumps({k: round(v, 1) for k, v in spans.most_common(16)}),
+          flush=True)
+
+    # one more prove under torch.profiler: the device's busy share and the
+    # device ops that take its time (profiling slows the host side, so the
+    # wall time here is not the prove time above)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        SparsePolynomialEvaluationProof.prove(
+            dense, r, gens, strategy, ProofTranscript(b"example"),
+            RandomTape(b"proof"))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # kernel events only: a CPU op's device time repeats its kernels'
+    kernels_ev = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and device_us(e) > 0),
+                        key=device_us, reverse=True)
+    busy_ms = sum(device_us(e) for e in kernels_ev) / 1e3
+    ours = {name: sum(device_us(e) for e in kernels_ev if name in e.key) / 1e3
+            for name in ("mont_mul_kernel", "padd_kernel")}
+    top = {e.key[:60]: [round(device_us(e) / 1e3, 2), e.count]
+           for e in kernels_ev[:6]}
+    if busy_ms > 0:
+        busy = (f"device_busy_ms={busy_ms:.1f} profiled_wall_ms="
+                f"{prof_wall_ms:.1f} busy_share_profiled="
+                f"{busy_ms / prof_wall_ms:.3f} busy_share_of_prove_s="
+                f"{busy_ms / (prove_s * 1e3):.3f} kernel_launches="
+                f"{sum(e.count for e in kernels_ev)} k1_ms={ours['mont_mul_kernel']:.2f} "
+                f"k3_ms={ours['padd_kernel']:.2f}")
+    else:
+        busy = "device time not measured (the profiler saw no device time)"
+    print(f"phase 5 profiled prove: {busy} top_kernels(ms, calls)="
+          f"{json.dumps(top)}", flush=True)
+
+    # -- 6. each kernel at the main path's dominant shape ----------------------
+    # the shape that carried the most elements over the timed prove
+    (mm_a, mm_b, mm_f), _ = max(
+        shapes["mont_mul"].items(),
+        key=lambda kv: kv[1] * max(np.prod(kv[0][0]), np.prod(kv[0][1])))
+    n_mm = max(int(np.prod(mm_a)), int(np.prod(mm_b))) // W
+    fmm = TFr if mm_f == "Fr" else TFp
+    a = torch.as_tensor(random_limbs(rng, int(np.prod(mm_a)) // W, fmm),
+                        device=dev).reshape(mm_a)
+    b = torch.as_tensor(random_limbs(rng, int(np.prod(mm_b)) // W, fmm),
+                        device=dev).reshape(mm_b)
+    err1 = int((field_cuda.mont_mul_cuda(a, b, mm_f).to(torch.int64)
+                - field_cuda.mont_mul_plain(a, b, mm_f).reshape(-1, W)
+                .to(torch.int64)).abs().max())
+    if err1:
+        fail(f"K1 at the main-path shape {mm_a} x {mm_b}: differs by {err1}")
+    k1_ms = cuda_ms(lambda: field_cuda.mont_mul_cuda(a, b, mm_f), 50)
+    k1_plain = cuda_ms(lambda: field_cuda.mont_mul_plain(a, b, mm_f), 10)
+    k1_bound, k1_by = bound_ms((a.numel() + b.numel() + n_mm * W) * 4,
+                               K1_OPS * n_mm)
+
+    pa_shape, _ = max(shapes["padd"].items(),
+                      key=lambda kv: kv[1] * np.prod(kv[0]))
+    kk, _, _, nn = pa_shape
+    sel = torch.as_tensor(rng.integers(0, 2 * pool_n + 1, size=(2, kk * nn)),
+                          device=dev)
+    pool = tcurve.from_host_points(pool_host, dev)
+    pp = pool[..., sel[0]].reshape(4, W, kk, nn).permute(2, 0, 1, 3).contiguous()
+    qq = pool[..., sel[1]].reshape(4, W, kk, nn).permute(2, 0, 1, 3).contiguous()
+    err3 = int((field_cuda.padd_cuda(pp, qq).to(torch.int64)
+                - field_cuda.padd_plain(pp, qq).to(torch.int64)).abs().max())
+    if err3:
+        fail(f"K3 at the main-path shape {pa_shape}: differs by {err3}")
+    k3_ms = cuda_ms(lambda: field_cuda.padd_cuda(pp, qq), 50)
+    k3_plain = cuda_ms(lambda: field_cuda.padd_plain(pp, qq), 10)
+    k3_bound, k3_by = bound_ms(3 * 256 * kk * nn, K3_OPS * kk * nn)
+    print(f"phase 6 main-path shapes: K1 {mm_f} {list(mm_a)}x{list(mm_b)} "
+          f"calls={shapes['mont_mul'][(mm_a, mm_b, mm_f)]} equal=True "
+          f"ms={k1_ms:.4f} plain_ms={k1_plain:.4f}; K3 {list(pa_shape)} "
+          f"calls={shapes['padd'][pa_shape]} equal=True ms={k3_ms:.4f} "
+          f"plain_ms={k3_plain:.4f}; distinct_shapes K1="
+          f"{len(shapes['mont_mul'])} K3={len(shapes['padd'])}", flush=True)
+
+    kernels = {"kernels": [
+        {"name": "mont_mul (K1)", "route": "cuda",
+         "source": "lasso_tpu_torch/csrc/mont_mul.cu",
+         "replaces": "lasso_tpu/ops/field_pallas.py:94",
+         "launches": prove_counts["mont_mul"],
+         "equal": True, "max_abs_err": max(k1["max_abs_err"], err1),
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": None,
+         "shape": [list(mm_a), list(mm_b), mm_f]},
+        {"name": "padd (K3)", "route": "cuda",
+         "source": "lasso_tpu_torch/csrc/padd.cu",
+         "replaces": "lasso_tpu/ops/field_pallas.py:232",
+         "launches": prove_counts["padd"],
+         "equal": True, "max_abs_err": max(k3_err, err3),
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None,
+         "shape": list(pa_shape)},
+    ]}
+    print(json.dumps(kernels), flush=True)
+    print(f"card: {card_line()} total_s={time.perf_counter() - t_start:.1f}",
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,309 @@
+"""Hand-written CUDA kernels for the field and curve hot path (port of
+ops/field_pallas.py), their plain PyTorch versions, and their build.
+
+  K1  mont_mul  csrc/mont_mul.cu  <- field_pallas._mont_mul_lm
+  K3  padd      csrc/padd.cu      <- field_pallas._padd_lm_batched
+
+(K2, field_pallas._mont_mul_lm_batched, serves only the JAX package's
+unfused curve path and is not ported yet.)
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel, and the wrapper raises if the kernel cannot take it.  There is no
+fallback from one to the other.
+
+Build: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles each source
+into its own shared library with a plain C entry point (bound with ctypes),
+at first use or through `build()`, one nvcc per source, all started
+together.  Libraries land in lasso_tpu_torch/build/cuda-<hash>/, keyed by a
+hash of the sources and flags; nothing is compiled when the module is
+imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+from lasso_tpu_torch.field import tfield as _tf
+
+W = _tf.W
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.abspath(os.path.join(_HERE, "..", "csrc"))
+BUILD_DIR = os.path.abspath(os.path.join(_HERE, "..", "build"))
+HEADER = "field256.cuh"
+SOURCES = {"mont_mul": "mont_mul.cu", "padd": "padd.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+FIELD_IDS = {"Fr": 0, "Fp": 1}
+
+# Kernel launches since the last reset: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+launch_counts = {"mont_mul": 0, "padd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (int64 arithmetic; any device)
+# ---------------------------------------------------------------------------
+
+def _field(name: str) -> _tf.TField:
+    return {"Fr": _tf.TFr, "Fp": _tf.TFp}[name]
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
+    """a*b*2^-256 mod p on broadcastable [..., 16] canonical limbs."""
+    return _tf.mont_mul_limbs(a, b, _field(field).consts(a.device))
+
+
+def _curve_consts(device):
+    from lasso_tpu_torch.field import constants as K
+
+    fp = _tf.TFp
+    a = fp.const(_tf.pack_int(fp.host.to_mont(K.CURVE_A)), device)
+    d = fp.const(_tf.pack_int(fp.host.to_mont(K.CURVE_D)), device)
+    return a, d
+
+
+def padd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """add-2008-hwcd on broadcastable [..., 4, 16, n] extended points: the
+    same 9 general and 2 constant products as kernel K3."""
+    c = _tf.TFp.consts(p.device)
+    a_m, d_m = _curve_consts(p.device)
+
+    def coords(x):  # [..., 4, W, n] -> 4 x [..., n, W]
+        return [x[..., i, :, :].movedim(-2, -1) for i in range(4)]
+
+    def mul(x, y):
+        return _tf.mont_mul_limbs(x, y, c)
+
+    def add(x, y):
+        return _tf._add(x, y, c)
+
+    def sub(x, y):
+        return _tf._sub(x, y, c)
+
+    x1, y1, z1, t1 = coords(p)
+    x2, y2, z2, t2 = coords(q)
+    a_ = mul(x1, x2)
+    b_ = mul(y1, y2)
+    c_ = mul(mul(t1, t2), d_m)
+    d_ = mul(z1, z2)
+    e = sub(sub(mul(add(x1, y1), add(x2, y2)), a_), b_)
+    f = sub(d_, c_)
+    g = add(d_, c_)
+    h = sub(b_, mul(a_, a_m))
+    out = [mul(e, f), mul(g, h), mul(f, g), mul(e, h)]
+    return torch.stack([o.movedim(-1, -2) for o in out], dim=-3)
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _build_dir() -> str:
+    h = hashlib.sha256()
+    for name in [HEADER] + sorted(SOURCES.values()):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "cuda-" + h.hexdigest()[:16])
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(_build_dir(), f"lib{name}.so")
+
+
+def build(names=None) -> float:
+    """Compile every missing kernel library, all nvcc processes at once.
+
+    Returns the wall seconds spent.  Raises with the compiler's output if
+    any source fails to build."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    out_dir = _build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, SOURCES[name])]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
+            f.write(log)
+        if proc.returncode == 0:
+            os.replace(tmp, _lib_path(name))
+        else:
+            errors.append(f"nvcc failed on {SOURCES[name]}:\n{log[-4000:]}")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (ptxas register and spill report) for `name`."""
+    with open(os.path.join(_build_dir(), f"{name}.log")) as f:
+        return f.read()
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(_lib_path(name))
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    if name == "mont_mul":
+        lib.lasso_mont_mul.argtypes = [vp, vp, vp, i64, i64, i64,
+                                       ctypes.c_int, vp]
+        lib.lasso_mont_mul.restype = ctypes.c_int
+    else:
+        lib.lasso_padd.argtypes = [vp, vp, vp, i64, i64, vp]
+        lib.lasso_padd.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def _check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def _check_operand(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 limbs, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers (strict) and dispatchers
+# ---------------------------------------------------------------------------
+
+def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
+    """Launch K1 on contiguous int32 CUDA limbs: a [n, 16] and b [n, 16],
+    or either one a single [16] (or [1, 16]) element broadcast to all n."""
+    _check_operand(a, "mont_mul a")
+    _check_operand(b, "mont_mul b")
+    if a.device != b.device:
+        raise ValueError("mont_mul: operands on different devices")
+    if a.shape[-1] != W or b.shape[-1] != W:
+        raise ValueError(f"mont_mul: limb axis must be {W}")
+    na, nb = a.numel() // W, b.numel() // W
+    n = max(na, nb)
+    if na not in (1, n) or nb not in (1, n):
+        raise ValueError(f"mont_mul: cannot pair {na} with {nb} elements")
+    out = torch.empty((n, W), dtype=torch.int32, device=a.device)
+    if n == 0:
+        return out
+    rc = _lib("mont_mul").lasso_mont_mul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+        W if na == n else 0, W if nb == n else 0, FIELD_IDS[field],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _check_launch(rc, "mont_mul")
+    launch_counts["mont_mul"] += 1
+    return out
+
+
+def padd_cuda(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on contiguous int32 CUDA points p, q [K, 4, 16, n]."""
+    _check_operand(p, "padd p")
+    _check_operand(q, "padd q")
+    if p.device != q.device:
+        raise ValueError("padd: operands on different devices")
+    if p.dim() != 4 or p.shape[1:3] != (4, W) or q.shape != p.shape:
+        raise ValueError(f"padd: expected equal [K, 4, {W}, n] points, got "
+                         f"{tuple(p.shape)} and {tuple(q.shape)}")
+    out = torch.empty_like(p)
+    k, n = p.shape[0], p.shape[3]
+    if k * n == 0:
+        return out
+    rc = _lib("padd").lasso_padd(
+        p.data_ptr(), q.data_ptr(), out.data_ptr(), k, n,
+        torch.cuda.current_stream(p.device).cuda_stream)
+    _check_launch(rc, "padd")
+    launch_counts["padd"] += 1
+    return out
+
+
+def _on_cpu(*xs) -> bool:
+    devs = {x.device.type for x in xs}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"operands on mixed devices: {sorted(devs)}")
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
+    """Montgomery product of broadcastable [..., 16] limbs: K1 for CUDA
+    tensors, the plain version for CPU tensors."""
+    if _on_cpu(a, b):
+        return mont_mul_plain(a, b, field)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    n = 1
+    for s in shape[:-1]:
+        n *= s
+
+    def operand(x):
+        if x.numel() == W:  # a broadcast constant: stride 0 in the kernel
+            return x.reshape(W).contiguous()
+        return x.expand(shape).contiguous().reshape(n, W)
+
+    return mont_mul_cuda(operand(a), operand(b), field).reshape(shape)
+
+
+def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Extended-point sum of broadcastable [..., 4, 16, n] points: K3 for
+    CUDA tensors, the plain version for CPU tensors."""
+    if _on_cpu(p, q):
+        return padd_plain(p, q)
+    shape = torch.broadcast_shapes(p.shape, q.shape)
+    k = 1
+    for s in shape[:-3]:
+        k *= s
+    flat = (k, 4, W, shape[-1])
+    out = padd_cuda(p.expand(shape).contiguous().reshape(flat),
+                    q.expand(shape).contiguous().reshape(flat))
+    return out.reshape(shape)

@@ -1,0 +1,94 @@
+"""Dense multilinear polynomials on tensors (port of poly/dense.py).
+
+The evaluation table is an [n, 16] Montgomery limb tensor over Fr on the
+proof's device.  Index convention matches the reference: index bit 0 (LSB)
+is the LAST variable.  The sumcheck binds its tables itself
+(subprotocols/sumcheck.py); the Hyrax opening needs the L-fold here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lasso_tpu_torch.field.host import Fr
+from lasso_tpu_torch.field.tfield import TFr, W
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+def _bound_fold(z, l_vec):
+    """L-fold L @ Z over the [L, R] matrix view."""
+    l_size = l_vec.shape[0]
+    zmat = z.reshape(l_size, -1, W)
+    return TFr.sum(TFr.mul(zmat, l_vec[:, None, :]))
+
+
+def eq_evals_device(r_list, device) -> torch.Tensor:
+    """eq(r, .) table over {0,1}^len(r): [2^l, W]; index MSB <-> r[0]
+    (reference: src/poly/eq_poly.rs:21-38)."""
+    e = TFr.ones(1, device)
+    for r in r_list:
+        t = TFr.mul(e, r)  # e * r_j
+        rest = TFr.sub(e, t)  # e * (1 - r_j)
+        e = torch.stack([rest, t], dim=1).reshape(-1, W)
+    return e
+
+
+class DensePolynomial:
+    """Evaluations over the boolean hypercube, on a device."""
+
+    def __init__(self, z: torch.Tensor):
+        assert z.ndim == 2 and z.shape[1] == W
+        assert _is_pow2(z.shape[0]), "dense MLE length must be a power of two"
+        self.z = z
+
+    def __len__(self) -> int:
+        return self.z.shape[0]
+
+    @property
+    def num_vars(self) -> int:
+        return (len(self) - 1).bit_length()
+
+    @property
+    def device(self) -> torch.device:
+        return self.z.device
+
+    def bound(self, l_vec: torch.Tensor) -> torch.Tensor:
+        """L-fold for Hyrax: view Z as an [L, R] matrix, return L @ Z ([R, W])."""
+        return _bound_fold(self.z, l_vec)
+
+
+# ---------------------------------------------------------------------------
+# host-side helpers for tiny polynomials (n-to-1 reductions over <=32 values)
+# ---------------------------------------------------------------------------
+
+def bound_var_bot_host(vals: list[int], r: int) -> list[int]:
+    return [(vals[2 * i] + r * (vals[2 * i + 1] - vals[2 * i])) % Fr.p
+            for i in range(len(vals) // 2)]
+
+
+def eq_evals_host(r: list[int]) -> list[int]:
+    evals = [1]
+    for rj in r:
+        nxt = []
+        for e in evals:
+            t = e * rj % Fr.p
+            nxt.append((e - t) % Fr.p)
+            nxt.append(t)
+        evals = nxt
+    return evals
+
+
+def eq_evaluate_host(r: list[int], rx: list[int]) -> int:
+    """eq(r, rx) (reference: src/poly/eq_poly.rs:14-19)."""
+    assert len(r) == len(rx)
+    acc = 1
+    for a, b in zip(r, rx):
+        acc = acc * ((a * b + (1 - a) * (1 - b)) % Fr.p) % Fr.p
+    return acc
+
+
+def factored_lens(ell: int) -> tuple[int, int]:
+    return ell // 2, ell - ell // 2

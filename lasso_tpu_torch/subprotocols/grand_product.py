@@ -1,0 +1,232 @@
+"""Grand product circuits + batched argument (port of
+subprotocols/grand_product.py, host-transcript layer loop; reference:
+src/subprotocols/grand_product.rs).
+
+A batch of I same-sized product circuits is one tensor per layer
+([I, len, W]), built bottom-up with one Montgomery product per layer; the
+batched layer sumcheck runs through subprotocols/sumcheck.
+prove_cubic_batched with all instances on the leading axis.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from lasso_tpu_torch.field.host import Fr
+from lasso_tpu_torch.field.tfield import TFr, W
+from lasso_tpu_torch.poly.dense import eq_evals_device, eq_evaluate_host
+from lasso_tpu_torch.subprotocols.sumcheck import (SumcheckInstanceProof,
+                                                   prove_cubic_batched)
+from lasso_tpu_torch.utils.errors import LassoError
+from lasso_tpu_torch.utils.tracing import instrument
+
+
+def _layer_product(vals):
+    """[I, n, W] -> [I, n/2, W]: pairwise left*right products."""
+    half = vals.shape[1] // 2
+    return TFr.mul(vals[:, :half], vals[:, half:])
+
+
+# Product-tree layers above this many field elements are not kept resident:
+# the layer loop recomputes them from the leaves on demand.
+GP_STORE_ELEMS = 1 << 22
+
+
+class _HalfView:
+    """Lazy left/right halves of the per-layer product tensors."""
+
+    def __init__(self, circuit: "BatchedGrandProductCircuit", side: int):
+        self._circuit = circuit
+        self._side = side
+
+    def __len__(self) -> int:
+        return self._circuit.num_layers
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self._circuit.layer_half(i, self._side)
+
+
+class BatchedGrandProductCircuit:
+    """I product-tree circuits over inputs [I, n, W] (n a power of two).
+
+    Storage: the leaves plus every layer small enough for GP_STORE_ELEMS;
+    wider layers are recomputed from the leaves on demand."""
+
+    def __init__(self, inputs: torch.Tensor = None, leaves_fn=None,
+                 shape: tuple = None):
+        """Either hold `inputs` [I, n, W] as the leaves, or pass
+        `leaves_fn(half)` + `shape=(I, n)` when the leaves are cheaply
+        derivable: `leaves_fn(None)` returns the full leaves,
+        `leaves_fn(0|1)` just the left/right half.  The leaves then never
+        stay resident."""
+        if leaves_fn is None:
+            assert inputs.ndim == 3
+            num_instances, n = inputs.shape[0], inputs.shape[1]
+        else:
+            num_instances, n = shape
+        assert n & (n - 1) == 0 and n >= 2
+        self.num_instances = num_instances
+        self._num_layers = (n - 1).bit_length()
+        self._leaves = inputs
+        self._leaves_fn = leaves_fn
+        self._stored: dict[int, torch.Tensor] = {}
+        self._memo: tuple[int, torch.Tensor] | None = None
+        cur = inputs if leaves_fn is None else leaves_fn(None)
+        self.device = cur.device
+        t = 0
+        while cur.shape[1] > 2:
+            cur = _layer_product(cur)
+            t += 1
+            if cur.numel() // W <= GP_STORE_ELEMS:
+                self._stored[t] = cur
+        self._top_t = t  # layer index of the width-2 top (0 when n == 2)
+        if t and t not in self._stored:
+            self._stored[t] = cur
+
+    def layer(self, t: int) -> torch.Tensor:
+        """Layer t values [I, n / 2^t, W] (recomputed if not resident)."""
+        if t == 0:
+            return (self._leaves if self._leaves_fn is None
+                    else self._leaves_fn(None))
+        got = self._stored.get(t)
+        if got is not None:
+            return got
+        if self._memo is not None and self._memo[0] == t:
+            return self._memo[1]
+        cur = self.layer(0)
+        for _ in range(t):
+            cur = _layer_product(cur)
+        # both halves of a layer are fetched back to back: keep the last
+        # recompute
+        self._memo = (t, cur)
+        return cur
+
+    def layer_half(self, t: int, side: int) -> torch.Tensor:
+        """Left (side=0) / right (side=1) half of layer t."""
+        if t == 0 and self._leaves_fn is not None:
+            return self._leaves_fn(side)
+        vals = self.layer(t)
+        half = vals.shape[1] // 2
+        return vals[:, :half] if side == 0 else vals[:, half:]
+
+    @property
+    def left_layers(self) -> _HalfView:
+        return _HalfView(self, 0)
+
+    @property
+    def right_layers(self) -> _HalfView:
+        return _HalfView(self, 1)
+
+    @property
+    def num_layers(self) -> int:
+        return self._num_layers
+
+    def release(self) -> None:
+        """Drop all layer tensors once the argument is done."""
+        self._leaves = None
+        self._leaves_fn = None
+        self._stored = {}
+        self._memo = None
+
+    def evaluate(self) -> list[int]:
+        """Root products, one per instance (host ints)."""
+        top = self.layer(self._top_t)
+        return TFr.decode(TFr.mul(top[:, 0], top[:, 1]))
+
+
+@dataclass
+class LayerProofBatched:
+    proof: SumcheckInstanceProof
+    claims_prod_left: list[int]
+    claims_prod_right: list[int]
+
+
+@dataclass
+class BatchedGrandProductArgument:
+    proof: list[LayerProofBatched]
+
+    @staticmethod
+    @instrument("BatchedGrandProductArgument.prove")
+    def prove(circuits: BatchedGrandProductCircuit, transcript):
+        """Returns (argument, rand)."""
+        num_layers = circuits.num_layers
+        claims_to_verify = circuits.evaluate()
+        proof_layers: list[LayerProofBatched] = []
+        rand: list[int] = []
+        device = circuits.device
+
+        for layer_id in range(num_layers - 1, -1, -1):
+            layer_len = 1 << (num_layers - 1 - layer_id)  # width per side
+            eq_poly = eq_evals_device(
+                [TFr.encode_scalar(x, device) for x in rand], device)
+            assert eq_poly.shape[0] == layer_len
+            num_rounds = (layer_len - 1).bit_length()
+
+            coeffs = transcript.challenge_vector(
+                b"rand_coeffs_next_layer", len(claims_to_verify))
+            claim = sum(c * v for c, v in zip(coeffs, claims_to_verify)) % Fr.p
+
+            proof, rand_prod, (claims_left, claims_right, _claim_eq) = \
+                prove_cubic_batched(
+                    claim, num_rounds, circuits.left_layers[layer_id],
+                    circuits.right_layers[layer_id], eq_poly, coeffs,
+                    transcript)
+
+            for cl, cr in zip(claims_left, claims_right):
+                transcript.append_scalar(b"claim_prod_left", cl)
+                transcript.append_scalar(b"claim_prod_right", cr)
+
+            r_layer = transcript.challenge_scalar(b"challenge_r_layer")
+            claims_to_verify = [
+                (cl + r_layer * (cr - cl)) % Fr.p
+                for cl, cr in zip(claims_left, claims_right)
+            ]
+            rand = [r_layer] + rand_prod
+            proof_layers.append(LayerProofBatched(proof, claims_left, claims_right))
+
+        return BatchedGrandProductArgument(proof_layers), rand
+
+    def verify(self, claims_prod_vec: list[int], n: int, transcript):
+        """Returns (claims_to_verify, rand). Host-side."""
+        num_layers = (n - 1).bit_length()
+        if len(self.proof) != num_layers:
+            raise LassoError("grand product argument has wrong number of layers")
+        rand: list[int] = []
+        claims_to_verify = list(claims_prod_vec)
+
+        for num_rounds, layer in enumerate(self.proof):
+            coeffs = transcript.challenge_vector(
+                b"rand_coeffs_next_layer", len(claims_to_verify))
+            claim = sum(c * v for c, v in zip(coeffs, claims_to_verify)) % Fr.p
+
+            claim_last, rand_prod = layer.proof.verify(claim, num_rounds, 3, transcript)
+
+            claims_left = layer.claims_prod_left
+            claims_right = layer.claims_prod_right
+            if len(claims_left) != len(claims_prod_vec) or \
+               len(claims_right) != len(claims_prod_vec):
+                raise LassoError("claim count mismatch in grand product layer")
+
+            for cl, cr in zip(claims_left, claims_right):
+                transcript.append_scalar(b"claim_prod_left", cl)
+                transcript.append_scalar(b"claim_prod_right", cr)
+
+            if len(rand) != len(rand_prod):
+                raise LassoError("rand length mismatch in grand product layer")
+            eq_eval = eq_evaluate_host(rand, rand_prod)
+            claim_expected = sum(
+                c * (cl * cr % Fr.p * eq_eval) for c, cl, cr in
+                zip(coeffs, claims_left, claims_right)) % Fr.p
+            if claim_expected != claim_last:
+                raise LassoError("grand product layer claim mismatch")
+
+            r_layer = transcript.challenge_scalar(b"challenge_r_layer")
+            claims_to_verify = [
+                (cl + r_layer * (cr - cl)) % Fr.p
+                for cl, cr in zip(claims_left, claims_right)
+            ]
+            rand = [r_layer] + rand_prod
+
+        return claims_to_verify, rand

@@ -1,0 +1,257 @@
+"""Port field arithmetic (lasso_tpu_torch.field.tfield, ops.field_cuda)
+against the JAX package's JFr/JFp and its Pallas K1 kernel, on the CPU.
+
+All comparisons are exact, limb for limb: this is integer arithmetic.  The
+same numpy-seeded inputs, including 0, 1 and p-1, go to both packages.  The
+JAX side runs in a fresh process with its compile cache off
+(LASSO_TPU_XLA_CACHE=off), so none of its compiles touch the compile cache
+that parallel test workers share.  The CUDA kernels' shared header
+(csrc/field256.cuh) is also built for the host with g++ and held against
+the plain versions, so the arithmetic the card runs is checked here too.
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from lasso_tpu_torch.field.tfield import TFp, TFr
+from lasso_tpu_torch.interop import limbs_from_numpy, to_numpy
+from lasso_tpu_torch.ops import field_cuda
+
+# small tensors: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIELDS = {"Fr": TFr, "Fp": TFp}
+N = 64
+
+
+def jax_reference(script, tmp_path, **inputs):
+    """Run `script` against the JAX package in a fresh process (compile
+    cache off) and return the arrays it puts in `out`; `inp` holds
+    `inputs` there."""
+    src, dst = tmp_path / "jax_in.npz", tmp_path / "jax_out.npz"
+    np.savez(src, **inputs)
+    code = ("import sys\nimport numpy as np\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            f"inp = dict(np.load({str(src)!r}))\nout = {{}}\n"
+            + textwrap.dedent(script)
+            + f"\nnp.savez({str(dst)!r}, **out)\n")
+    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return dict(np.load(dst))
+
+
+_JFIELD = """
+from lasso_tpu.field.jfield import JFp, JFr
+jf = {"Fr": JFr, "Fp": JFp}[str(inp["field"])]
+a = [int(x) for x in inp["a"]]
+b = [int(x) for x in inp["b"]]
+ja, jb = jf.encode_ints(a), jf.encode_ints(b)
+out["a"], out["b"] = np.asarray(ja), np.asarray(jb)
+"""
+
+
+def _ints(field, n, seed):
+    rng = np.random.default_rng(seed)
+    p = field.host.p
+    vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    vals[:3] = [0, 1, p - 1]
+    return vals
+
+
+def _pair(name, seed=0):
+    tf = FIELDS[name]
+    a = _ints(tf, N, seed)
+    b = _ints(tf, N, seed + 1)
+    b[2] = tf.host.p - 1  # (p-1) op (p-1)
+    return tf, a, b, tf.encode_ints(a, "cpu"), tf.encode_ints(b, "cpu")
+
+
+def _strs(vals):
+    return np.array([str(v) for v in vals])
+
+
+def _eq(t, ref):
+    np.testing.assert_array_equal(to_numpy(t), ref)
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_binary_ops_match_jax(name, op, tmp_path):
+    tf, a, b, ta, tb = _pair(name)
+    ref = jax_reference(_JFIELD + f"out['r'] = np.asarray(jf.{op}(ja, jb))\n",
+                        tmp_path, field=name, a=_strs(a), b=_strs(b))
+    _eq(ta, ref["a"])
+    _eq(tb, ref["b"])
+    _eq(getattr(tf, op)(ta, tb), ref["r"])
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_neg_and_limb_major_ops_match_jax(name, tmp_path):
+    tf, a, b, ta, tb = _pair(name, seed=5)
+    ref = jax_reference(_JFIELD + """
+out["neg"] = np.asarray(jf.neg(ja))
+ja_lm = ja.reshape(4, 16, 16).swapaxes(-1, -2)
+jb_lm = jb.reshape(4, 16, 16).swapaxes(-1, -2)
+out["add_lm"] = np.asarray(jf.add_lm(ja_lm, jb_lm))
+out["sub_lm"] = np.asarray(jf.sub_lm(ja_lm, jb_lm))
+out["neg_lm"] = np.asarray(jf.neg_lm(ja_lm))
+""", tmp_path, field=name, a=_strs(a), b=_strs(b))
+    _eq(tf.neg(ta), ref["neg"])
+    ta_lm = ta.reshape(4, 16, 16).transpose(-1, -2)
+    tb_lm = tb.reshape(4, 16, 16).transpose(-1, -2)
+    _eq(tf.add_lm(ta_lm, tb_lm), ref["add_lm"])
+    _eq(tf.sub_lm(ta_lm, tb_lm), ref["sub_lm"])
+    _eq(tf.neg_lm(ta_lm), ref["neg_lm"])
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_sums_match_jax(name, tmp_path):
+    tf, a, b, ta, _ = _pair(name, seed=7)
+    ref = jax_reference(_JFIELD + """
+out["sum"] = np.asarray(jf.sum(ja))
+out["sum3"] = np.asarray(jf.sum(ja.reshape(16, 4, 16)))
+""", tmp_path, field=name, a=_strs(a), b=_strs(b))
+    _eq(tf.sum(ta), ref["sum"])
+    _eq(tf.finish_sum(tf.sum_columns(ta.reshape(16, 4, 16))), ref["sum3"])
+    assert tf.decode(tf.sum(ta)[None]) == [sum(a) % tf.host.p]
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_inverse_and_conversions_match_jax(name, tmp_path):
+    tf, a, b, ta, _ = _pair(name, seed=9)
+    u64 = np.random.default_rng(3).integers(0, 2**63, size=N, dtype=np.uint64)
+    wide = to_numpy(ta).copy()
+    wide[:, 15] = 0xFFFF  # values below 2^256, not reduced
+    ref = jax_reference(_JFIELD + """
+out["inv"] = np.asarray(jf.inv_device(ja[3:8]))
+out["ints"] = np.asarray(jf.to_int_limbs(ja))
+out["scalar"] = np.asarray(jf.encode_scalar(a[5]))
+out["u64"] = np.asarray(jf.encode_u64_array(inp["u64"]))
+out["canon"] = np.asarray(jf.canon_wide(inp["wide"]))
+out["decoded"] = np.array([str(v) for v in jf.decode(ja)])
+""", tmp_path, field=name, a=_strs(a), b=_strs(b), u64=u64, wide=wide)
+    _eq(ta, ref["a"])
+    _eq(tf.inv_device(ta[3:8]), ref["inv"])
+    _eq(tf.to_int_limbs(ta), ref["ints"])
+    _eq(tf.encode_scalar(a[5], "cpu"), ref["scalar"])
+    assert tf.decode(ta) == [int(v) for v in ref["decoded"]] == a
+    _eq(tf.encode_u64_array(u64, "cpu"), ref["u64"])
+    _eq(tf.canon_wide(limbs_from_numpy(wide, "cpu")), ref["canon"])
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_mont_mul_plain_matches_pallas_kernel(name, tmp_path):
+    """K1's plain version against the Pallas kernel (interpret mode) on one
+    1024-element tile."""
+    tf = FIELDS[name]
+    n = 1024
+    a, b = _ints(tf, n, 21), _ints(tf, n, 22)
+    ref = jax_reference(_JFIELD + """
+from lasso_tpu.ops.field_pallas import _mont_mul_lm
+n = 1024
+lm = lambda x: np.asarray(x).T.reshape(16, n // 128, 128)
+got = _mont_mul_lm(lm(ja), lm(jb), jf.p_limbs, jf.n0inv, interpret=True)
+out["r"] = np.asarray(got).reshape(16, n).T
+""", tmp_path, field=name, a=_strs(a), b=_strs(b))
+    plain = field_cuda.mont_mul_plain(
+        limbs_from_numpy(ref["a"], "cpu"), limbs_from_numpy(ref["b"], "cpu"),
+        name)
+    _eq(plain, ref["r"])
+
+
+def test_dispatch_uses_plain_version_on_cpu():
+    _, _, _, ta, tb = _pair("Fr", seed=13)
+    before = dict(field_cuda.launch_counts)
+    out = field_cuda.mont_mul(ta, tb, "Fr")
+    assert field_cuda.launch_counts == before  # no kernel launch on the CPU
+    assert torch.equal(out, field_cuda.mont_mul_plain(ta, tb, "Fr"))
+    with pytest.raises(ValueError):
+        field_cuda.mont_mul_cuda(ta, tb, "Fr")  # the kernel takes CUDA only
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' arithmetic header, built for the host
+# ---------------------------------------------------------------------------
+
+_SHIM = r"""
+#include "field256.cuh"
+extern "C" void h_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
+                           int64_t n, int field) {
+  const f256::Modulus m = field == 0 ? f256::fr_modulus() : f256::fp_modulus();
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t x[8], y[8], z[8];
+    f256::load16(x, a + 16 * i, 1);
+    f256::load16(y, b + 16 * i, 1);
+    f256::mont_mul(z, x, y, m);
+    f256::store16(out + 16 * i, z, 1);
+  }
+}
+extern "C" void h_padd(const int32_t* p, const int32_t* q, int32_t* out,
+                       int64_t n) {
+  const f256::Curve c = f256::curve25519();
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t x[4][8], y[4][8], r[4][8];
+    for (int co = 0; co < 4; ++co) {
+      f256::load16(x[co], p + co * 16 * n + i, n);
+      f256::load16(y[co], q + co * 16 * n + i, n);
+    }
+    f256::padd_point(r, x, y, c);
+    for (int co = 0; co < 4; ++co) f256::store16(out + co * 16 * n + i, r[co], n);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def header_lib(tmp_path_factory):
+    d = tmp_path_factory.mktemp("field256")
+    src, so = d / "shim.cpp", d / "shim.so"
+    src.write_text(_SHIM)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
+                    field_cuda.CSRC, str(src), "-o", str(so)], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.h_mont_mul.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int]
+    lib.h_padd.argtypes = [vp, vp, vp, ctypes.c_int64]
+    return lib
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_cuda_header_mont_mul_matches_plain(header_lib, name):
+    tf = FIELDS[name]
+    n = 512
+    ta = tf.encode_ints(_ints(tf, n, 31), "cpu").contiguous()
+    tb = tf.encode_ints(_ints(tf, n, 32), "cpu").contiguous()
+    out = torch.empty_like(ta)
+    header_lib.h_mont_mul(ta.data_ptr(), tb.data_ptr(), out.data_ptr(), n,
+                          field_cuda.FIELD_IDS[name])
+    assert torch.equal(out, field_cuda.mont_mul_plain(ta, tb, name))
+
+
+def test_cuda_header_padd_matches_plain(header_lib):
+    from lasso_tpu_torch.curve import tcurve
+    from lasso_tpu_torch.curve.host import GENERATOR, Point
+
+    pts = [GENERATOR.mul(k) for k in range(1, 9)]
+    # P+Q, P+P, P+identity, P+(-P)
+    p_host = pts * 4
+    q_host = pts[::-1] + pts + [Point.identity()] * 8 + [p.neg() for p in pts]
+    p = tcurve.from_host_points(p_host, "cpu")
+    q = tcurve.from_host_points(q_host, "cpu")
+    out = torch.empty_like(p)
+    header_lib.h_padd(p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[-1])
+    want = field_cuda.padd_plain(p, q)
+    assert torch.equal(out, want)
+    assert tcurve.to_host_points(out) == [a.add(b) for a, b in zip(p_host, q_host)]
