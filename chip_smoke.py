@@ -18,8 +18,18 @@ Phases, in order; each prints one line and any failure exits non-zero:
      tampered proof, check the l-variate commitment rows against the host
      Pippenger, and profile one more prove for the card's busy share;
   6. each kernel held against its plain version at the main path's own
-     dominant shape, then the `kernels` JSON line, the card line, and the
-     final status line.
+     dominant shape;
+  7. K2 (limb-major Montgomery multiply) against its plain version, Fr and
+     Fp, K=4 stacked operands of n = 2^20 and a broadcast [16, 1] constant;
+  8. the bench CLI's main path on the unfused curve configuration
+     (LASSO_TPU_PALLAS_PADD=0): `lasso_tpu_torch.cli` jolt-demo, AND, C=8,
+     M=2^16, s=2^16, with launch counts (K2 > 0, K3 = 0) and its spans; then
+     the same instance proven once unfused and once fused, whose proof and
+     commitment bytes must be identical, and one more fused prove under
+     the profiler for the card's busy share;
+  9. K2 held against its plain version at the shape that carried the most
+     elements in the unfused jolt-demo prove; then the `kernels` JSON line,
+     the card line, and the final status line.
 
 Needs one CUDA card; it imports nothing of JAX or of the JAX package.
 """
@@ -82,6 +92,13 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def walk_into(totals, sp) -> None:
+    """Add each span's inclusive ms under its name, recursively."""
+    totals[sp.name] += sp.duration * 1e3
+    for ch in sp.children:
+        walk_into(totals, ch)
+
+
 def random_limbs(rng, n: int, field):
     """n canonical elements of `field` as [n, 16] limbs: uniform limbs with
     the top limb kept below the modulus' top limb, plus 0, 1 and p-1."""
@@ -109,6 +126,10 @@ def main() -> int:
     import numpy as np
 
     import lasso_tpu_torch.subtables.bitwise  # noqa: F401 (registers AND/OR/XOR)
+    import lasso_tpu_torch.subtables.lt  # noqa: F401
+    import lasso_tpu_torch.subtables.range_check  # noqa: F401
+    from lasso_tpu_torch import cli
+    from lasso_tpu_torch.benches import bench
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point, msm_host
     from lasso_tpu_torch.field.tfield import TFp, TFr, unpack_ints
@@ -127,6 +148,7 @@ def main() -> int:
                                                  serialize_proof)
 
     dev = torch.device("cuda")
+    tcurve.set_fused_padd(True)  # phases 1-6: the fused curve path (K3)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     rng = np.random.default_rng(20241016)
@@ -211,9 +233,9 @@ def main() -> int:
     with open(os.path.join(HERE, "tests", "fixtures", "golden_proofs.json")) as f:
         golden = json.load(f)
 
-    def prove_bytes(strategy_name, c, log_m, log_s):
+    def prove_bytes(strategy_name, c, log_m, log_s, options=None):
         m, s = 1 << log_m, 1 << log_s
-        strategy = get_strategy(strategy_name, c, m)
+        strategy = get_strategy(strategy_name, c, m, **(options or {}))
         nz = gen_indices(s, m, c)
         r = gen_random_point(log_s)
         dense = DensifiedRepresentation(nz, log_m, c, device=dev)
@@ -232,14 +254,20 @@ def main() -> int:
                 "commitment_sha256": hashlib.sha256(cb).hexdigest(),
                 "commitment_len": len(cb)}
 
-    for name in ("and_4d", "or_4d", "xor_4d"):
-        proof, comm, _, gens, r, _ = prove_bytes(name.split("_")[0], 4, 4, 4)
+    goldens = {  # (strategy, C, log M, log s, options)
+        "and_4d": ("and", 4, 4, 4, {}), "or_4d": ("or", 4, 4, 4, {}),
+        "xor_4d": ("xor", 4, 4, 4, {}), "lt_4d": ("lt", 4, 4, 4, {}),
+        "lt_4d_big_s": ("lt", 4, 4, 7, {}),
+        "range_3d": ("range_check", 3, 8, 4, {"log_r": 40})}
+    for name, args in goldens.items():
+        proof, comm, _, gens, r, _ = prove_bytes(*args)
         got_e = entry(proof, comm)
         if got_e != golden[name]:
             fail(f"golden {name}: {got_e} != {golden[name]}")
         proof.verify(comm, r, gens, ProofTranscript(b"example"))
-    print("phase 4 golden: and_4d=equal or_4d=equal xor_4d=equal "
-          "(proof+commitment sha256 and lengths; verify accepted)", flush=True)
+    print("phase 4 golden: " + " ".join(f"{n}=equal" for n in goldens)
+          + " (proof+commitment sha256 and lengths; verify accepted)",
+          flush=True)
 
     # -- 5. the flagship main path -----------------------------------------------
     log_m, log_s = 16, 14
@@ -297,14 +325,8 @@ def main() -> int:
     prove_counts = dict(field_cuda.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     spans = collections.Counter()
-
-    def walk(sp):
-        spans[sp.name] += sp.duration * 1e3
-        for ch in sp.children:
-            walk(ch)
-
     for root in tracing.span_tree():
-        walk(root)
+        walk_into(spans, root)
     if prove_counts["mont_mul"] <= 0 or prove_counts["padd"] <= 0:
         fail(f"flagship prove did not launch every kernel: {prove_counts}")
 
@@ -422,6 +444,197 @@ def main() -> int:
           f"plain_ms={k3_plain:.4f}; distinct_shapes K1="
           f"{len(shapes['mont_mul'])} K3={len(shapes['padd'])}", flush=True)
 
+    # -- 7. K2 against its plain version ---------------------------------------
+    def k2_plain(a, b, field):
+        """K2's plain version, a batch slice at a time when the operands
+        are large (its int64 product columns take ~4 KB per element)."""
+        k, _, n = (a if a.dim() == 3 else b).shape
+        per = max(1, (1 << 20) // n)
+
+        def part(x, lo):  # a [16, 1] constant goes whole to every slice
+            return x if x.dim() == 2 else x[lo:lo + per]
+        return torch.cat([field_cuda.mont_mul_lm_plain(part(a, lo), part(b, lo),
+                                                       field)
+                          for lo in range(0, k, per)])
+
+    def limb_major(field, k, n):
+        x = torch.as_tensor(random_limbs(rng, k * n, field), device=dev)
+        return x.reshape(k, n, W).transpose(1, 2).contiguous()
+
+    def k2_check(a, b, field, what):
+        got = field_cuda.mont_mul_lm_cuda(a, b, field)
+        want = k2_plain(a, b, field)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err:
+            fail(f"K2 {field} {what}: kernel differs from plain by {err}")
+        return err
+
+    k2 = {"max_abs_err": 0}
+    k2_n, k2_k = 1 << 20, 4
+    for field in (TFr, TFp):
+        a = limb_major(field, k2_k, k2_n)
+        b = limb_major(field, k2_k, k2_n)
+        const = b[1, :, 2:3].contiguous()  # one [16, 1] element
+        k2["max_abs_err"] = max(k2_check(a, b, field.name, "stacked"),
+                                k2_check(a, const, field.name, "broadcast"))
+        # the host oracle on a few columns
+        p, r_inv = field.host.p, field.host.r_inv
+        got = field_cuda.mont_mul_lm_cuda(a, b, field.name)
+        cols = [unpack_ints(x[0, :, :32].T) for x in (a, b, got)]
+        if any(g != x * y * r_inv % p for x, y, g in zip(*cols)):
+            fail(f"K2 {field.name}: kernel differs from the host oracle")
+        elems = k2_k * k2_n
+        ms = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, b, field.name), 20)
+        plain = cuda_ms(lambda: k2_plain(a, b, field.name), 2)
+        ms_c = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, const, field.name),
+                       20)
+        bnd, by = bound_ms(3 * 64 * elems, K1_OPS * elems)
+        bnd_c, _ = bound_ms(2 * 64 * elems + 64, K1_OPS * elems)
+        print(f"phase 7 K2 {field.name}: shape=[{k2_k},16,{k2_n}] equal=True "
+              f"max_abs_err=0 ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bnd:.4f} ({by}); broadcast [16,1] constant: "
+              f"equal=True ms={ms_c:.4f} bound_ms={bnd_c:.4f}", flush=True)
+        del a, b, const, got
+    torch.cuda.empty_cache()
+
+    # -- 8. the bench CLI on the unfused curve path (jolt-demo) -----------------
+    os.environ["LASSO_TPU_PALLAS_PADD"] = "0"
+    tcurve.set_fused_padd(None)  # read the switch as a user sets it
+    if tcurve._use_fused_padd():
+        fail("LASSO_TPU_PALLAS_PADD=0 did not select the unfused curve path")
+    jd_log_s = 16
+    field_cuda.reset_launch_counts()
+    tracing.reset_spans()
+    t0 = time.perf_counter()
+    rc = cli.main(["--name", "jolt-demo", "--s-min", str(jd_log_s),
+                   "--s-max", str(jd_log_s)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = dict(field_cuda.launch_counts)
+    if rc != 0:
+        fail(f"jolt-demo CLI exited with {rc}")
+    if cli_counts["mont_mul_lm"] <= 0 or cli_counts["mont_mul"] <= 0:
+        fail(f"jolt-demo did not launch K1 and K2: {cli_counts}")
+    if cli_counts["padd"] != 0:
+        fail(f"jolt-demo launched K3 on the unfused path: {cli_counts}")
+    (root,) = tracing.span_tree()
+    cli_times = {ch.name: ch.duration for ch in root.children
+                 if ch.name in ("commit", "prove", "verify")}
+    jd_spans = collections.Counter()
+    for ch in root.children:
+        walk_into(jd_spans, ch)
+    print(f"phase 8 jolt-demo CLI (AND C=8 M=2^16 s=2^{jd_log_s}, unfused): "
+          f"rc=0 verify=accepted wall_s={cli_s:.3f} "
+          + " ".join(f"{k}_s={v:.3f}" for k, v in cli_times.items())
+          + f" launches={json.dumps(cli_counts)}", flush=True)
+    print("phase 8 jolt-demo spans (inclusive ms, summed by name): "
+          + json.dumps({k: round(v, 1) for k, v in jd_spans.most_common(14)}),
+          flush=True)
+
+    # the same instance once more unfused, then fused: identical bytes
+    jd = bench.make_instance("and", 8, 1 << 16, 1 << jd_log_s, dev)
+    k2_shapes = collections.Counter()
+    orig_lm = field_cuda.mont_mul_lm_cuda
+
+    def rec_lm(a, b, field):
+        k2_shapes[(tuple(a.shape), tuple(b.shape), field)] += 1
+        return orig_lm(a, b, field)
+
+    runs = {}
+    for label, fused in (("unfused", False), ("fused", True)):
+        tcurve.set_fused_padd(fused)
+        field_cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        comm = jd.dense.commit(jd.gens)
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        if not fused:
+            field_cuda.mont_mul_lm_cuda = rec_lm
+        field_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        proof = bench.prove(jd)
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        field_cuda.mont_mul_lm_cuda = orig_lm
+        p_counts = dict(field_cuda.launch_counts)
+        t0 = time.perf_counter()
+        proof.verify(comm, jd.r, jd.gens, ProofTranscript(b"example"))
+        torch.cuda.synchronize()
+        v_s = time.perf_counter() - t0
+        runs[label] = {"entry": entry(proof, comm), "commit_s": c_s,
+                       "prove_s": p_s, "verify_s": v_s,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "prove_launches": p_counts}
+        del proof, comm
+    # one more fused prove under torch.profiler (device activity only): the
+    # card's busy share.  An unfused prove launches about ten times as many
+    # kernels, and processing their trace would outlast the run's limit.
+    tcurve.set_fused_padd(True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bench.prove(jd)
+        torch.cuda.synchronize()
+        jd_prof_ms = (time.perf_counter() - t0) * 1e3
+    jd_kernels = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    jd_busy_ms = sum(device_us(e) for e in jd_kernels) / 1e3
+    jd_k3_ms = sum(device_us(e) for e in jd_kernels
+                   if "padd_kernel" in e.key) / 1e3
+    if jd_busy_ms > 0:
+        print(f"phase 8 jolt-demo profiled fused prove: device_busy_ms="
+              f"{jd_busy_ms:.1f} profiled_wall_ms={jd_prof_ms:.1f} "
+              f"busy_share_profiled={jd_busy_ms / jd_prof_ms:.3f} "
+              f"busy_share_of_prove_s="
+              f"{jd_busy_ms / (runs['fused']['prove_s'] * 1e3):.3f} "
+              f"kernel_launches={sum(e.count for e in jd_kernels)} "
+              f"k3_ms={jd_k3_ms:.2f}", flush=True)
+    else:
+        print("phase 8 jolt-demo profiled fused prove: device time not "
+              "measured (the profiler saw no device time)", flush=True)
+    os.environ.pop("LASSO_TPU_PALLAS_PADD")
+    tcurve.set_fused_padd(True)
+    if runs["unfused"]["entry"] != runs["fused"]["entry"]:
+        fail(f"jolt-demo: unfused and fused bytes differ: {runs}")
+    u_counts = runs["unfused"]["prove_launches"]
+    if u_counts["mont_mul_lm"] <= 0 or u_counts["padd"] != 0:
+        fail(f"jolt-demo unfused prove: wrong kernels {u_counts}")
+    for label, run in runs.items():
+        print(f"phase 8 jolt-demo {label}: commit_s={run['commit_s']:.3f} "
+              f"prove_s={run['prove_s']:.3f} verify_s={run['verify_s']:.3f} "
+              f"verify=accepted peak_mem_gib={run['peak_gib']:.3f} "
+              f"prove_launches={json.dumps(run['prove_launches'])}",
+              flush=True)
+    print(f"phase 8 jolt-demo bytes: unfused == fused "
+          f"proof_len={runs['fused']['entry']['proof_len']} "
+          f"proof_sha256={runs['fused']['entry']['proof_sha256']} "
+          f"commitment_sha256={runs['fused']['entry']['commitment_sha256']}",
+          flush=True)
+    del jd
+    torch.cuda.empty_cache()
+
+    # -- 9. K2 at the unfused jolt-demo prove's dominant shape -----------------
+    (lm_a, lm_b, lm_f), lm_calls = max(
+        k2_shapes.items(),
+        key=lambda kv: kv[1] * max(np.prod(kv[0][0]), np.prod(kv[0][1])))
+    flm = TFr if lm_f == "Fr" else TFp
+    out_shape = lm_a if len(lm_a) == 3 else lm_b
+    a = (limb_major(flm, lm_a[0], lm_a[2]) if len(lm_a) == 3
+         else limb_major(flm, 1, 1)[0])
+    b = (limb_major(flm, lm_b[0], lm_b[2]) if len(lm_b) == 3
+         else limb_major(flm, 1, 1)[0])
+    err2 = k2_check(a, b, lm_f, f"at {lm_a} x {lm_b}")
+    k2_ms = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, b, lm_f), 50)
+    k2_plain_ms = cuda_ms(lambda: k2_plain(a, b, lm_f), 5)
+    n_lm = int(np.prod(out_shape)) // W
+    k2_bound, k2_by = bound_ms((a.numel() + b.numel() + n_lm * W) * 4,
+                               K1_OPS * n_lm)
+    print(f"phase 9 main-path shape: K2 {lm_f} {list(lm_a)}x{list(lm_b)} "
+          f"calls={lm_calls} equal=True ms={k2_ms:.4f} "
+          f"plain_ms={k2_plain_ms:.4f} bound_ms={k2_bound:.4f}; "
+          f"distinct_shapes K2={len(k2_shapes)}", flush=True)
+
     kernels = {"kernels": [
         {"name": "mont_mul (K1)", "route": "cuda",
          "source": "lasso_tpu_torch/csrc/mont_mul.cu",
@@ -431,6 +644,14 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None,
          "shape": [list(mm_a), list(mm_b), mm_f]},
+        {"name": "mont_mul_lm (K2)", "route": "cuda",
+         "source": "lasso_tpu_torch/csrc/mont_mul_lm.cu",
+         "replaces": "lasso_tpu/ops/field_pallas.py:111",
+         "launches": cli_counts["mont_mul_lm"],
+         "equal": True, "max_abs_err": max(k2["max_abs_err"], err2),
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None,
+         "shape": [list(lm_a), list(lm_b), lm_f]},
         {"name": "padd (K3)", "route": "cuda",
          "source": "lasso_tpu_torch/csrc/padd.cu",
          "replaces": "lasso_tpu/ops/field_pallas.py:232",

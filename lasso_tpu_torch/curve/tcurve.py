@@ -10,11 +10,21 @@ addresses.
 Because a is a square and d a non-square for ark-curve25519, the unified
 hwcd addition law is complete: P+P, P+identity and P+(-P) all go through the
 same formula, so bucket accumulation needs no exceptional cases and masking
-with the identity point is always safe.  `pdbl` is `padd(P, P)`, as in the
-reference when its fused add is active.
+with the identity point is always safe.
+
+Two configurations, chosen as the reference chooses them
+(LASSO_TPU_PALLAS_PADD, read once):
+  * fused (the default): one kernel K3 per group op; `pdbl` is `padd(P, P)`;
+  * unfused (LASSO_TPU_PALLAS_PADD=0 or off): the reference's stacked-mul
+    formulas, three limb-major products (kernel K2) per add, and the
+    dedicated dbl-2008-hwcd doubling.
+Both give the same group elements; their projective limbs differ for
+doublings, so callers compare points canonically.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -22,13 +32,35 @@ import torch
 from lasso_tpu_torch.curve import host as hostcurve
 from lasso_tpu_torch.field import constants as K
 from lasso_tpu_torch.field.host import Fp as HostFp
-from lasso_tpu_torch.field.tfield import TFp, W
+from lasso_tpu_torch.field.tfield import TFp, W, pack_int
 from lasso_tpu_torch.ops import field_cuda
 
 # identity (0 : 1 : 1 : 0) in Montgomery form, limb-major [4, W, 1]
 _ONE_M = np.asarray(TFp.mont_one, dtype=np.int32).reshape(W, 1)
 _ZERO = np.zeros((W, 1), dtype=np.int32)
 IDENTITY = np.stack([_ZERO, _ONE_M, _ONE_M, _ZERO])
+# curve constants a and d in Montgomery form, limb-major [W, 1]
+_A_M = pack_int(HostFp.to_mont(K.CURVE_A)).astype(np.int32).reshape(W, 1)
+_D_M = pack_int(HostFp.to_mont(K.CURVE_D)).astype(np.int32).reshape(W, 1)
+
+_FUSED_PADD: bool | None = None
+
+
+def _use_fused_padd() -> bool:
+    """The fused add (K3) unless LASSO_TPU_PALLAS_PADD is 0 or off, read
+    once per process (or after set_fused_padd(None))."""
+    global _FUSED_PADD
+    if _FUSED_PADD is None:
+        env = os.environ.get("LASSO_TPU_PALLAS_PADD", "auto")
+        _FUSED_PADD = env not in ("0", "off")
+    return _FUSED_PADD
+
+
+def set_fused_padd(fused: bool | None) -> None:
+    """Select the fused (True) or unfused (False) curve path for this
+    process; None goes back to reading LASSO_TPU_PALLAS_PADD."""
+    global _FUSED_PADD
+    _FUSED_PADD = fused
 
 
 def identity(n=1, lead=(), device="cpu") -> torch.Tensor:
@@ -37,14 +69,66 @@ def identity(n=1, lead=(), device="cpu") -> torch.Tensor:
 
 
 def padd(p, q) -> torch.Tensor:
-    """Unified extended twisted Edwards addition (add-2008-hwcd): kernel K3
-    for CUDA tensors, its plain version for CPU tensors."""
-    return field_cuda.padd(p, q)
+    """Unified extended twisted Edwards addition (add-2008-hwcd).  Fused:
+    kernel K3 for CUDA tensors, its plain version for CPU tensors;
+    unfused: _padd_unfused."""
+    if _use_fused_padd():
+        return field_cuda.padd(p, q)
+    return _padd_unfused(p, q)
 
 
 def pdbl(p) -> torch.Tensor:
-    """Doubling through the complete unified addition (P+P)."""
-    return padd(p, p)
+    """Doubling: the complete unified addition (P+P) when fused, the
+    dedicated dbl-2008-hwcd formulas (_pdbl_unfused) otherwise."""
+    if _use_fused_padd():
+        return padd(p, p)
+    return _pdbl_unfused(p)
+
+
+def _coords(p):
+    return p[..., 0, :, :], p[..., 1, :, :], p[..., 2, :, :], p[..., 3, :, :]
+
+
+def _padd_unfused(p, q) -> torch.Tensor:
+    """add-2008-hwcd as three stacked limb-major products (port of
+    jcurve._padd_xla): 4 + 3 + 4 field products in three TFp.mul_lm calls."""
+    shape = torch.broadcast_shapes(p.shape, q.shape)
+    x1, y1, z1, t1 = _coords(p.expand(shape))
+    x2, y2, z2, t2 = _coords(q.expand(shape))
+    fadd, fsub, fmul = TFp.add_lm, TFp.sub_lm, TFp.mul_lm
+
+    s1 = fadd(x1, y1)
+    s2 = fadd(x2, y2)
+    a_, b_, tt, s = fmul(torch.stack([x1, y1, t1, s1]),
+                         torch.stack([x2, y2, t2, s2]))
+    consts = torch.stack([TFp.const(_D_M, p.device).expand(tt.shape),
+                          TFp.const(_A_M, p.device).expand(a_.shape), z2])
+    c_, a_a, d_ = fmul(torch.stack([tt, a_, z1]), consts)
+    e = fsub(fsub(s, a_), b_)
+    f = fsub(d_, c_)
+    g = fadd(d_, c_)
+    h = fsub(b_, a_a)
+    w = fmul(torch.stack([e, g, f, e]), torch.stack([f, h, g, h]))
+    return w.movedim(0, -3)
+
+
+def _pdbl_unfused(p) -> torch.Tensor:
+    """dbl-2008-hwcd (port of jcurve._pdbl_xla): three TFp.mul_lm calls,
+    the middle one against the broadcast constant a."""
+    x1, y1, z1, _ = _coords(p)
+    fadd, fsub, fmul = TFp.add_lm, TFp.sub_lm, TFp.mul_lm
+
+    s1 = fadd(x1, y1)
+    u = torch.stack([x1, y1, z1, s1])
+    a_, b_, zz, s2 = fmul(u, u)
+    a_a = fmul(a_, TFp.const(_A_M, p.device))
+    c_ = fadd(zz, zz)
+    e = fsub(fsub(s2, a_), b_)
+    g = fadd(a_a, b_)
+    f = fsub(g, c_)
+    h = fsub(a_a, b_)
+    w = fmul(torch.stack([e, g, f, e]), torch.stack([f, h, g, h]))
+    return w.movedim(0, -3)
 
 
 def pneg(p) -> torch.Tensor:

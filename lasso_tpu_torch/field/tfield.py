@@ -7,7 +7,8 @@ Arithmetic on the torch side runs in int64 (a CPU build of torch has no
 uint32 add, shift or comparison).
 
 `mul` is the Montgomery product of ops/field_cuda.py: the hand-written CUDA
-kernel K1 for CUDA tensors, its plain PyTorch version for CPU tensors.
+kernel K1 for CUDA tensors, its plain PyTorch version for CPU tensors;
+`mul_lm` is the same product on limb-major tensors, through kernel K2.
 Everything else here (additions, carries, reductions, the REDC of a wide
 sum) is plain PyTorch, as it is plain XLA in the reference.
 
@@ -285,6 +286,14 @@ class TField:
 
     def sub_lm(self, a, b) -> torch.Tensor:
         return self.sub(a.movedim(-2, -1), b.movedim(-2, -1)).movedim(-1, -2)
+
+    def mul_lm(self, a, b) -> torch.Tensor:
+        """Limb-major Montgomery product (the unfused curve path): kernel
+        K2 on CUDA, its plain version on CPU."""
+        from lasso_tpu_torch.ops import field_cuda
+
+        b = self._tensor_like(b, a)
+        return field_cuda.mont_mul_lm(a, b, self.name)
 
     def neg_lm(self, a) -> torch.Tensor:
         return self.sub_lm(torch.zeros_like(a), a)

@@ -1,10 +1,11 @@
 """Carrying state across from the JAX package (lasso_tpu) as plain numpy.
 
 The JAX package holds field elements as uint32 arrays [..., 16] of 16-bit
-limbs in Montgomery form, and points as [..., 4, 16, n] limb-major extended
-coordinates; the port holds the same limbs in int32 tensors.  These helpers
-convert between the two without importing the JAX package, so tests can
-hand both packages identical inputs and compare their outputs limb for limb.
+limbs in Montgomery form (or limb-major, [..., 16, n], on the curve path),
+and points as [..., 4, 16, n] limb-major extended coordinates; the port
+holds the same limbs in int32 tensors.  These helpers convert between the
+two without importing the JAX package, so tests can hand both packages
+identical inputs and compare their outputs limb for limb.
 
 The system's only parameters are the Pedersen/Hyrax generators, derived from
 a label with Shake256 and ChaCha20; `generators_match` checks the port's
@@ -31,6 +32,16 @@ def limbs_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     arr = _limb_array(a)
     if arr.shape[-1] != W:
         raise ValueError(f"field elements need limbs on the last axis, "
+                         f"got {arr.shape}")
+    return torch.as_tensor(arr, device=device)
+
+
+def limb_major_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """JAX-package limb-major field elements (uint32 [..., 16, n], the
+    operands of JField.mul_lm) -> int32 tensor."""
+    arr = _limb_array(a)
+    if arr.ndim < 2 or arr.shape[-2] != W:
+        raise ValueError(f"limb-major elements need limbs on axis -2, "
                          f"got {arr.shape}")
     return torch.as_tensor(arr, device=device)
 

@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels for the field and curve hot path (port of
 ops/field_pallas.py), their plain PyTorch versions, and their build.
 
-  K1  mont_mul  csrc/mont_mul.cu  <- field_pallas._mont_mul_lm
-  K3  padd      csrc/padd.cu      <- field_pallas._padd_lm_batched
+  K1  mont_mul     csrc/mont_mul.cu     <- field_pallas._mont_mul_lm
+  K2  mont_mul_lm  csrc/mont_mul_lm.cu  <- field_pallas._mont_mul_lm_batched
+  K3  padd         csrc/padd.cu         <- field_pallas._padd_lm_batched
 
-(K2, field_pallas._mont_mul_lm_batched, serves only the JAX package's
-unfused curve path and is not ported yet.)
+K2 carries the unfused curve path (curve/tcurve.py, LASSO_TPU_PALLAS_PADD=0);
+K3 the fused one.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, and the wrapper raises if the kernel cannot take it.  There is no
@@ -39,14 +40,15 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.abspath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.abspath(os.path.join(_HERE, "..", "build"))
 HEADER = "field256.cuh"
-SOURCES = {"mont_mul": "mont_mul.cu", "padd": "padd.cu"}
+SOURCES = {"mont_mul": "mont_mul.cu", "mont_mul_lm": "mont_mul_lm.cu",
+           "padd": "padd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FIELD_IDS = {"Fr": 0, "Fp": 1}
 
 # Kernel launches since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launch_counts = {"mont_mul": 0, "padd": 0}
+launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +67,14 @@ def _field(name: str) -> _tf.TField:
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     """a*b*2^-256 mod p on broadcastable [..., 16] canonical limbs."""
     return _tf.mont_mul_limbs(a, b, _field(field).consts(a.device))
+
+
+def mont_mul_lm_plain(a: torch.Tensor, b: torch.Tensor,
+                      field: str) -> torch.Tensor:
+    """The same product on broadcastable limb-major [..., 16, n] limbs:
+    limbs to the last axis, mont_mul_plain, and back."""
+    return mont_mul_plain(a.movedim(-2, -1), b.movedim(-2, -1),
+                          field).movedim(-1, -2)
 
 
 def _curve_consts(device):
@@ -195,6 +205,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.lasso_mont_mul.argtypes = [vp, vp, vp, i64, i64, i64,
                                        ctypes.c_int, vp]
         lib.lasso_mont_mul.restype = ctypes.c_int
+    elif name == "mont_mul_lm":
+        lib.lasso_mont_mul_lm.argtypes = [vp, i64, i64, i64, vp, i64, i64,
+                                          i64, vp, i64, i64, ctypes.c_int, vp]
+        lib.lasso_mont_mul_lm.restype = ctypes.c_int
     else:
         lib.lasso_padd.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.lasso_padd.restype = ctypes.c_int
@@ -246,6 +260,38 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     return out
 
 
+def mont_mul_lm_cuda(a: torch.Tensor, b: torch.Tensor,
+                     field: str) -> torch.Tensor:
+    """Launch K2 on contiguous int32 CUDA limbs: a [K, 16, n] and b
+    [K, 16, n], or either one a single [16, 1] element broadcast to every
+    (k, column).  Returns [K, 16, n]."""
+    _check_operand(a, "mont_mul_lm a")
+    _check_operand(b, "mont_mul_lm b")
+    if a.device != b.device:
+        raise ValueError("mont_mul_lm: operands on different devices")
+    full = [x for x in (a, b) if x.shape != (W, 1)] or [a]
+    shape = full[0].shape
+    if len(shape) != 3 or shape[1] != W or any(x.shape != shape for x in full):
+        raise ValueError(f"mont_mul_lm: expected [K, {W}, n] operands or a "
+                         f"[{W}, 1] constant, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    k, _, n = shape
+    out = torch.empty((k, W, n), dtype=torch.int32, device=a.device)
+    if k * n == 0:
+        return out
+
+    def strides(x):  # (k, limb, column); a [16, 1] constant reads stride 0
+        return (0, 1, 0) if x.shape == (W, 1) else (W * n, n, 1)
+
+    rc = _lib("mont_mul_lm").lasso_mont_mul_lm(
+        a.data_ptr(), *strides(a), b.data_ptr(), *strides(b), out.data_ptr(),
+        k, n, FIELD_IDS[field],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _check_launch(rc, "mont_mul_lm")
+    launch_counts["mont_mul_lm"] += 1
+    return out
+
+
 def padd_cuda(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Launch K3 on contiguous int32 CUDA points p, q [K, 4, 16, n]."""
     _check_operand(p, "padd p")
@@ -292,6 +338,27 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
         return x.expand(shape).contiguous().reshape(n, W)
 
     return mont_mul_cuda(operand(a), operand(b), field).reshape(shape)
+
+
+def mont_mul_lm(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
+    """Montgomery product of broadcastable limb-major [..., 16, n] limbs:
+    K2 for CUDA tensors, the plain version for CPU tensors.  Leading axes
+    flatten to K, as in the reference's entry; a single [16, 1] element is
+    read with stride 0."""
+    if _on_cpu(a, b):
+        return mont_mul_lm_plain(a, b, field)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    k = 1
+    for s in shape[:-2]:
+        k *= s
+    flat = (k, W, shape[-1])
+
+    def operand(x):
+        if x.numel() == W and shape[-1] != 1:  # a broadcast constant
+            return x.reshape(W, 1).contiguous()
+        return x.expand(shape).contiguous().reshape(flat)
+
+    return mont_mul_lm_cuda(operand(a), operand(b), field).reshape(shape)
 
 
 def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

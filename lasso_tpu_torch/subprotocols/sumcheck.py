@@ -80,6 +80,54 @@ class SumcheckInstanceProof:
         return e, r
 
 
+@dataclass
+class ZKSumcheckInstanceProof:
+    """ZK sumcheck: committed round polynomials + dot-product decommitments
+    (reference: src/subprotocols/sumcheck.rs:331-448, verify-only like the
+    reference -- the non-ZK prover is what Lasso uses)."""
+
+    comm_polys: list  # host Points
+    comm_evals: list  # host Points
+    proofs: list  # DotProductProof
+
+    def verify(self, comm_claim, num_rounds: int, degree_bound: int,
+               gens_1, gens_n, transcript, device="cuda"):
+        """Returns (comm_eval_last, r).  `device` is where a decommitment
+        wider than the host-MSM threshold runs its MSM."""
+        if gens_n.n != degree_bound + 1:
+            raise LassoError("ZK sumcheck generator size mismatch")
+        if len(self.comm_polys) != num_rounds or len(self.comm_evals) != num_rounds:
+            raise LassoError("ZK sumcheck round count mismatch")
+
+        r: list[int] = []
+        for i in range(num_rounds):
+            comm_poly = self.comm_polys[i]
+            transcript.append_point(b"comm_poly", comm_poly)
+            r_i = transcript.challenge_scalar(b"challenge_nextround")
+
+            comm_claim_per_round = comm_claim if i == 0 else self.comm_evals[i - 1]
+            comm_eval = self.comm_evals[i]
+            transcript.append_point(b"comm_claim_per_round", comm_claim_per_round)
+            transcript.append_point(b"comm_eval", comm_eval)
+
+            w = transcript.challenge_vector(b"combine_two_claims_to_one", 2)
+            comm_target = comm_claim_per_round.mul(w[0]).add(comm_eval.mul(w[1]))
+
+            # decommitment vector: w0 * [2,1,..,1] + w1 * [1, r, r^2, ...]
+            a_sc = [1] * (degree_bound + 1)
+            a_sc[0] = 2
+            a_eval = [1] * (degree_bound + 1)
+            for j in range(1, degree_bound + 1):
+                a_eval[j] = a_eval[j - 1] * r_i % Fr.p
+            a = [(w[0] * x + w[1] * y) % Fr.p for x, y in zip(a_sc, a_eval)]
+
+            self.proofs[i].verify(gens_1, gens_n, transcript, a,
+                                  comm_poly, comm_target, device)
+            r.append(r_i)
+
+        return self.comm_evals[-1], r
+
+
 @instrument("Sumcheck.prove")
 def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript):
     """Arbitrary-degree sumcheck prover over stacked tables [alpha, n, W].

@@ -7,8 +7,7 @@ one they skip.  Run them on the card, from the repository root, with
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 (`--noconftest`: tests/conftest.py imports JAX, which the port does not need.)
-The `cuda` marker selects them; it is not registered in pytest.ini, which
-stays as the JAX package has it, so pytest warns that it is unknown.
+The `cuda` marker, registered in pytest.ini, selects them.
 """
 
 import hashlib
@@ -43,8 +42,8 @@ def _limbs(rng, n, field):
     return limbs.astype(np.int32)
 
 
-@pytest.mark.parametrize("field", [TFr, TFp], ids=["Fr", "Fp"])
-def test_mont_mul_kernel_matches_plain(dev, field):
+def _check_mont_mul_kernels(dev, field):
+    """K1 (element-major) and K2 (limb-major) against their plain versions."""
     rng = np.random.default_rng(1)
     a = torch.as_tensor(_limbs(rng, 4099, field), device=dev)
     b = torch.as_tensor(_limbs(rng, 4099, field), device=dev)
@@ -56,8 +55,28 @@ def test_mont_mul_kernel_matches_plain(dev, field):
                        field_cuda.mont_mul_plain(a, b[7], field.name))
     assert field_cuda.launch_counts["mont_mul"] == before + 2
 
+    # K2 on [K, 16, n] limb-major operands with a ragged n, against a
+    # broadcast [16, 1] constant, and through the dispatcher's broadcast of
+    # leading axes
+    rng = np.random.default_rng(3)
+    k, n = 3, 1000
+    a = torch.as_tensor(_limbs(rng, k * n, field), device=dev)
+    b = torch.as_tensor(_limbs(rng, k * n, field), device=dev)
+    a = a.reshape(k, n, 16).transpose(1, 2).contiguous()
+    b = b.reshape(k, n, 16).transpose(1, 2).contiguous()
+    const = b[1, :, 7:8].contiguous()
+    before = field_cuda.launch_counts["mont_mul_lm"]
+    assert torch.equal(field_cuda.mont_mul_lm_cuda(a, b, field.name),
+                       field_cuda.mont_mul_lm_plain(a, b, field.name))
+    assert torch.equal(field_cuda.mont_mul_lm_cuda(a, const, field.name),
+                       field_cuda.mont_mul_lm_plain(a, const, field.name))
+    assert torch.equal(field.mul_lm(a[None], b[:1]),
+                       field_cuda.mont_mul_lm_plain(a[None], b[:1], field.name))
+    assert field_cuda.launch_counts["mont_mul_lm"] == before + 3
 
-def test_padd_kernel_matches_plain(dev):
+
+def _check_padd_kernel(dev):
+    """K3 against its plain version, and the unfused path against K3."""
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point
 
@@ -73,8 +92,34 @@ def test_padd_kernel_matches_plain(dev):
     assert torch.equal(field_cuda.padd_cuda(p, p), field_cuda.padd_plain(p, p))
     assert field_cuda.launch_counts["padd"] == before + 2
 
+    # the unfused curve path (K2) against the fused add (K3): identical
+    # limbs for padd, identical compressed bytes for pdbl, and each path
+    # launches only its own kernel
+    rng = np.random.default_rng(4)
+    idx = torch.as_tensor(rng.integers(0, 129, size=(2, 2 * 700)), device=dev)
+    p = pool[..., idx[0]].reshape(4, 16, 2, 700).permute(2, 0, 1, 3).contiguous()
+    q = pool[..., idx[1]].reshape(4, 16, 2, 700).permute(2, 0, 1, 3).contiguous()
+    try:
+        tcurve.set_fused_padd(False)
+        field_cuda.reset_launch_counts()
+        add_u, dbl_u = tcurve.padd(p, q), tcurve.pdbl(p)
+        unfused_counts = dict(field_cuda.launch_counts)
+        tcurve.set_fused_padd(True)
+        field_cuda.reset_launch_counts()
+        add_f, dbl_f = tcurve.padd(p, q), tcurve.pdbl(p)
+        fused_counts = dict(field_cuda.launch_counts)
+    finally:
+        tcurve.set_fused_padd(None)
+    assert unfused_counts["mont_mul_lm"] == 6 and unfused_counts["padd"] == 0
+    assert fused_counts["padd"] == 2 and fused_counts["mont_mul_lm"] == 0
+    assert torch.equal(add_u, add_f)
+    for k in range(2):
+        assert torch.equal(tcurve.compress_points_device(dbl_u[k]),
+                           tcurve.compress_points_device(dbl_f[k]))
 
-def test_golden_and_4d_on_the_card(dev):
+
+def _check_golden_and_4d(dev):
+    """The golden and_4d proof, proven on the card."""
     import lasso_tpu_torch.subtables.bitwise  # noqa: F401
     from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
     from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
@@ -103,3 +148,13 @@ def test_golden_and_4d_on_the_card(dev):
     assert hashlib.sha256(pb).hexdigest() == golden["proof_sha256"]
     assert hashlib.sha256(cb).hexdigest() == golden["commitment_sha256"]
     proof.verify(comm, r, gens, ProofTranscript(b"example"))
+
+
+def test_kernels_and_golden_proof_on_the_card(dev):
+    """Every check of this module as one test item: the tier-1 suite, which
+    collects this file on the CPU too, keeps its item count (ROADMAP.md,
+    ground rules)."""
+    for field in (TFr, TFp):
+        _check_mont_mul_kernels(dev, field)
+    _check_padd_kernel(dev)
+    _check_golden_and_4d(dev)

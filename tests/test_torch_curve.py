@@ -1,5 +1,6 @@
-"""Port curve ops (lasso_tpu_torch.curve.tcurve and K3's plain version)
-against the JAX package's curve code and Pallas K3 kernel body, on the CPU.
+"""Port curve ops (lasso_tpu_torch.curve.tcurve, K3's plain version and the
+unfused curve path on K2's plain version) against the JAX package's curve
+code and Pallas K3 kernel body, on the CPU.
 
 Inputs are host scalar multiples of the basepoint plus their negations and
 the identity, so every case of the complete addition law is covered:
@@ -34,7 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def jax_reference(script, tmp_path, **inputs):
     """Run `script` against the JAX package in a fresh process (compile
-    cache off) and return the arrays it puts in `out`; `inp` holds
+    cache off, XLA:CPU's LLVM optimizations off: that halves the compile
+    work of the unrolled limb kernels and leaves their integer results
+    unchanged) and return the arrays it puts in `out`; `inp` holds
     `inputs` there."""
     src, dst = tmp_path / "jax_in.npz", tmp_path / "jax_out.npz"
     np.savez(src, **inputs)
@@ -43,7 +46,9 @@ def jax_reference(script, tmp_path, **inputs):
             f"inp = dict(np.load({str(src)!r}))\nout = {{}}\n"
             + textwrap.dedent(script)
             + f"\nnp.savez({str(dst)!r}, **out)\n")
-    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_backend_optimization_level=0 "
+                         "--xla_llvm_disable_expensive_passes=true")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -79,14 +84,22 @@ def _sums(p_host, q_host):
 
 
 def test_padd_plain_matches_jax_xla_path(tmp_path):
+    """K3's plain version and the unfused formulas (_padd_unfused /
+    _pdbl_unfused) against the reference's stacked-mul formulas (_padd_xla /
+    _pdbl_xla), limb for limb, and against the host oracle."""
     p_host, q_host = _cases(64, 1)
     p, q, got = _sums(p_host, q_host)
     ref = jax_reference("""
 from lasso_tpu.curve import jcurve
 out["r"] = np.asarray(jcurve._padd_xla(inp["p"], inp["q"]))
+out["dbl"] = np.asarray(jcurve._pdbl_xla(inp["p"]))
 """, tmp_path, p=to_numpy(p), q=to_numpy(q))
     np.testing.assert_array_equal(to_numpy(got), ref["r"])
     assert tcurve.to_host_points(got) == [a.add(b) for a, b in zip(p_host, q_host)]
+    np.testing.assert_array_equal(to_numpy(tcurve._padd_unfused(p, q)), ref["r"])
+    dbl = tcurve._pdbl_unfused(p)
+    np.testing.assert_array_equal(to_numpy(dbl), ref["dbl"])
+    assert tcurve.to_host_points(dbl) == [a.double() for a in p_host]
 
 
 def test_padd_plain_matches_pallas_kernel_body(tmp_path):
@@ -169,7 +182,16 @@ out["g"] = np.asarray(_gens_device(MultiCommitGens.new(n, b"gens_sparse_poly")))
     assert generators_match(n, label, ref["g"])
 
 
+def _compressed(points):
+    """Compressed bytes of each point of [4, 16, n] (ark serialization)."""
+    return [pt.to_compressed_bytes() for pt in tcurve.to_host_points(points)]
+
+
 def test_padd_dispatch_plain_on_cpu():
+    """padd takes K3's plain version on the CPU (no launch).  With the fused
+    add off, padd / pdbl / tree_sum route to the unfused formulas and give
+    the fused path's group elements: equal compressed bytes (pdbl's
+    projective limbs differ by design), again with no launch."""
     pts = tcurve.from_host_points([GENERATOR, GENERATOR.double()], "cpu")
     before = dict(field_cuda.launch_counts)
     out = tcurve.padd(pts, pts.flip(-1))
@@ -177,3 +199,24 @@ def test_padd_dispatch_plain_on_cpu():
     assert torch.equal(out, field_cuda.padd_plain(pts, pts.flip(-1)))
     with pytest.raises(ValueError):
         field_cuda.padd_cuda(pts[None].contiguous(), pts[None].contiguous())
+
+    p_host, q_host = _cases(64, 5)
+    p = tcurve.from_host_points(p_host, "cpu")
+    q = tcurve.from_host_points(q_host, "cpu")
+    tcurve.set_fused_padd(False)
+    try:
+        add, dbl = tcurve.padd(p, q), tcurve.pdbl(p)
+        total = tcurve.tree_sum(p)
+        assert field_cuda.launch_counts == before
+        assert torch.equal(add, tcurve._padd_unfused(p, q))
+        assert torch.equal(dbl, tcurve._pdbl_unfused(p))
+        tcurve.set_fused_padd(True)
+        fused_total = tcurve.tree_sum(p)
+    finally:
+        tcurve.set_fused_padd(None)
+    fused_dbl = field_cuda.padd_plain(p, p)
+    assert not torch.equal(dbl, fused_dbl)
+    assert _compressed(add) == _compressed(field_cuda.padd_plain(p, q))
+    assert _compressed(dbl) == _compressed(fused_dbl)
+    assert _compressed(total) == _compressed(fused_total)
+

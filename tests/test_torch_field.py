@@ -1,5 +1,6 @@
 """Port field arithmetic (lasso_tpu_torch.field.tfield, ops.field_cuda)
-against the JAX package's JFr/JFp and its Pallas K1 kernel, on the CPU.
+against the JAX package's JFr/JFp and its Pallas K1 and K2 kernels, on
+the CPU.
 
 All comparisons are exact, limb for limb: this is integer arithmetic.  The
 same numpy-seeded inputs, including 0, 1 and p-1, go to both packages.  The
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 from lasso_tpu_torch.field.tfield import TFp, TFr
-from lasso_tpu_torch.interop import limbs_from_numpy, to_numpy
+from lasso_tpu_torch.interop import (limb_major_from_numpy, limbs_from_numpy,
+                                     to_numpy)
 from lasso_tpu_torch.ops import field_cuda
 
 # small tensors: one intra-op thread, so parallel test workers do not
@@ -35,7 +37,9 @@ N = 64
 
 def jax_reference(script, tmp_path, **inputs):
     """Run `script` against the JAX package in a fresh process (compile
-    cache off) and return the arrays it puts in `out`; `inp` holds
+    cache off, XLA:CPU's LLVM optimizations off: that halves the compile
+    work of the unrolled limb kernels and leaves their integer results
+    unchanged) and return the arrays it puts in `out`; `inp` holds
     `inputs` there."""
     src, dst = tmp_path / "jax_in.npz", tmp_path / "jax_out.npz"
     np.savez(src, **inputs)
@@ -44,7 +48,9 @@ def jax_reference(script, tmp_path, **inputs):
             f"inp = dict(np.load({str(src)!r}))\nout = {{}}\n"
             + textwrap.dedent(script)
             + f"\nnp.savez({str(dst)!r}, **out)\n")
-    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_backend_optimization_level=0 "
+                         "--xla_llvm_disable_expensive_passes=true")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -152,25 +158,47 @@ out["decoded"] = np.array([str(v) for v in jf.decode(ja)])
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
 def test_mont_mul_plain_matches_pallas_kernel(name, tmp_path):
-    """K1's plain version against the Pallas kernel (interpret mode) on one
-    1024-element tile."""
+    """K1's and K2's plain versions against their Pallas kernels (interpret
+    mode): K1 on one 1024-element tile; K2 on one [1, 16, 1024] limb-major
+    tile and against a broadcast [16, 1] constant, and, for Fp, against the
+    reference's XLA limb-major multiply (JFp._mul_lm_xla)."""
     tf = FIELDS[name]
     n = 1024
     a, b = _ints(tf, n, 21), _ints(tf, n, 22)
+    x_lm = to_numpy(tf.encode_ints(_ints(tf, n, 41), "cpu")).T[None]
+    y_lm = to_numpy(tf.encode_ints(_ints(tf, n, 42), "cpu")).T[None]
+    c_lm = y_lm[0, :, 5:6]  # [16, 1]
     ref = jax_reference(_JFIELD + """
-from lasso_tpu.ops.field_pallas import _mont_mul_lm
+from lasso_tpu.ops.field_pallas import _mont_mul_lm, mont_mul_lm
 n = 1024
 lm = lambda x: np.asarray(x).T.reshape(16, n // 128, 128)
 got = _mont_mul_lm(lm(ja), lm(jb), jf.p_limbs, jf.n0inv, interpret=True)
 out["r"] = np.asarray(got).reshape(16, n).T
-""", tmp_path, field=name, a=_strs(a), b=_strs(b))
+for tag, y in (("full", inp["y"]), ("const", inp["c"])):
+    out["lm_" + tag] = np.asarray(
+        mont_mul_lm(inp["x"], y, jf.p_limbs, jf.n0inv, interpret=True))
+if jf is JFp:
+    out["xla"] = np.asarray(JFp._mul_lm_xla(inp["x"], inp["y"]))
+""", tmp_path, field=name, a=_strs(a), b=_strs(b), x=x_lm, y=y_lm, c=c_lm)
     plain = field_cuda.mont_mul_plain(
         limbs_from_numpy(ref["a"], "cpu"), limbs_from_numpy(ref["b"], "cpu"),
         name)
     _eq(plain, ref["r"])
+    x = limb_major_from_numpy(x_lm, "cpu")
+    for tag, y_np in (("full", y_lm), ("const", c_lm)):
+        y = limb_major_from_numpy(y_np, "cpu")
+        got = field_cuda.mont_mul_lm_plain(x, y, name)
+        assert got.shape == (1, 16, n)
+        _eq(got, ref["lm_" + tag])
+        _eq(tf.mul_lm(x, y), ref["lm_" + tag])
+    if name == "Fp":
+        _eq(TFp.mul_lm(x, limb_major_from_numpy(y_lm, "cpu")), ref["xla"])
 
 
 def test_dispatch_uses_plain_version_on_cpu():
+    """K1's and K2's dispatchers take the plain version for CPU tensors (no
+    launch; K2's broadcasts leading axes); the kernel wrappers take CUDA
+    tensors only."""
     _, _, _, ta, tb = _pair("Fr", seed=13)
     before = dict(field_cuda.launch_counts)
     out = field_cuda.mont_mul(ta, tb, "Fr")
@@ -178,6 +206,19 @@ def test_dispatch_uses_plain_version_on_cpu():
     assert torch.equal(out, field_cuda.mont_mul_plain(ta, tb, "Fr"))
     with pytest.raises(ValueError):
         field_cuda.mont_mul_cuda(ta, tb, "Fr")  # the kernel takes CUDA only
+
+    _, _, _, ta, tb = _pair("Fp", seed=17)
+    lm_a = ta.T.reshape(16, 4, 16).movedim(1, 0)  # [4, 16, 16] limb-major
+    lm_b = tb.T[None, :, :16]                     # [1, 16, 16], broadcast
+    before = dict(field_cuda.launch_counts)
+    out = field_cuda.mont_mul_lm(lm_a, lm_b, "Fp")
+    assert field_cuda.launch_counts == before
+    want = field_cuda.mont_mul_plain(lm_a.movedim(-2, -1),
+                                     lm_b.movedim(-2, -1), "Fp")
+    assert out.shape == (4, 16, 16)
+    assert torch.equal(out, want.movedim(-1, -2))
+    with pytest.raises(ValueError):
+        field_cuda.mont_mul_lm_cuda(lm_a.contiguous(), lm_a.contiguous(), "Fp")
 
 
 # ---------------------------------------------------------------------------
