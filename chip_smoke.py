@@ -7,9 +7,12 @@ Phases, in order; each prints one line and any failure exits non-zero:
      build every CUDA kernel from lasso_tpu_torch/csrc (one nvcc per source,
      all started together);
   2. K1 (Montgomery multiply) against its plain PyTorch version on the card,
-     Fr and Fp, n = 2^20, limb for limb, with both times;
+     Fr and Fp, n = 2^20, limb for limb, then at the ragged n = 1, 7, 257
+     and 2^20 - 3 with a broadcast constant on either side and the edge
+     values 0, 1 and p-1;
   3. K3 (fused Edwards add) against its plain version, n = 2^16 points
-     including P+P, P+identity and P+(-P), limbs and compressed bytes;
+     including P+P, P+identity and P+(-P), limbs and compressed bytes, and
+     K = 3 batches of the ragged n = 1 and 129;
   4. the golden and_4d / or_4d / xor_4d proofs on the card: proof and
      commitment sha256 and lengths must equal tests/fixtures/golden_proofs.json;
   5. the flagship main path: AND, C=1, M=2^16, s=2^14 (the halo2-comparison
@@ -26,10 +29,20 @@ Phases, in order; each prints one line and any failure exits non-zero:
      M=2^16, s=2^16, with launch counts (K2 > 0, K3 = 0) and its spans; then
      the same instance proven once unfused and once fused, whose proof and
      commitment bytes must be identical, and one more fused prove under
-     the profiler for the card's busy share;
+     the profiler for the card's busy share and K1's and K3's launches,
+     device time and dominant shapes; K1 and K3 held against their plain
+     versions at those shapes;
   9. K2 held against its plain version at the shape that carried the most
      elements in the unfused jolt-demo prove; then the `kernels` JSON line,
      the card line, and the final status line.
+
+Every kernel time is given twice: `device_ms`, the kernel's own device time
+per launch (torch.profiler's self device time over a loop of launches,
+divided by their count), and `host_loop_ms`, CUDA events around the same
+loop of wrapper calls, which includes the wrapper's host work and measures
+that instead when the kernel is shorter.  `bound_ms` is the larger of the
+bytes over the memory rate and the 32-bit multiplies over the card's
+integer multiply rate.
 
 Needs one CUDA card; it imports nothing of JAX or of the JAX package.
 """
@@ -46,10 +59,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
-# 32-bit rate outside the tensor cores
+# published H100 SXM memory rate (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+# 32-bit integer multiplies issue at 64 per clock per SM on compute
+# capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput); main() sets the rate from the card's SM count and maximum SM
+# clock (132 x 64 x 1980 MHz = 16.7e12/s on an H100 SXM)
+INT_MUL_PER_CLOCK_PER_SM = 64
+PEAK_OPS_PER_S = None
 W = 16
 # 32-bit multiply instructions per Montgomery product (8x8 words, CIOS:
 # 2*8*8 + 8 wide products, two instructions each) and per point addition
@@ -71,19 +88,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -130,6 +141,8 @@ def main() -> int:
     import lasso_tpu_torch.subtables.range_check  # noqa: F401
     from lasso_tpu_torch import cli
     from lasso_tpu_torch.benches import bench
+    from lasso_tpu_torch.benches.kernel_sweep import (device_ms, device_us,
+                                                      host_loop_ms)
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point, msm_host
     from lasso_tpu_torch.field.tfield import TFp, TFr, unpack_ints
@@ -151,8 +164,22 @@ def main() -> int:
     tcurve.set_fused_padd(True)  # phases 1-6: the fused curve path (K3)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    global PEAK_OPS_PER_S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_clock = max_sm_clock_hz()
+    PEAK_OPS_PER_S = sms * INT_MUL_PER_CLOCK_PER_SM * sm_clock
     rng = np.random.default_rng(20241016)
     t_start = time.perf_counter()
+    # every timed shape of every kernel: name -> [{shape, device_ms, ...}]
+    timed = collections.defaultdict(list)
+
+    def record(name, shape, dev_ms, loop_ms, plain_ms, bytes_moved, ops):
+        bnd, by = bound_ms(bytes_moved, ops)
+        timed[name].append({"shape": shape, "device_ms": dev_ms,
+                            "host_loop_ms": loop_ms, "plain_ms": plain_ms,
+                            "bound_ms": bnd, "bound_by": by})
+        return (f"device_ms={dev_ms:.4f} host_loop_ms={loop_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by})")
 
     # -- 1. device and build ---------------------------------------------------
     build_s = field_cuda.build()
@@ -161,7 +188,9 @@ def main() -> int:
         log = field_cuda.build_log(name)
         regs[name] = [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln]
-    print(f"phase 1 device+build: card={card!r} kind={kind!r} "
+    print(f"phase 1 device+build: card={card!r} kind={kind!r} sms={sms} "
+          f"max_sm_clock_mhz={sm_clock / 1e6:.0f} "
+          f"int_mul_peak_per_s={PEAK_OPS_PER_S:.4g} "
           f"build_s={build_s:.2f} ptxas={json.dumps(regs)}", flush=True)
 
     # -- 2. K1 against its plain version ---------------------------------------
@@ -183,13 +212,38 @@ def main() -> int:
         sa, sb, sg = (unpack_ints(x[:64]) for x in (a, b, got))
         if any(g != x * y * r_inv % p for g, x, y in zip(sg, sa, sb)):
             fail(f"K1 {field.name}: kernel differs from the host oracle")
-        ms = cuda_ms(lambda: field_cuda.mont_mul_cuda(a, b, field.name), 20)
-        plain = cuda_ms(lambda: field_cuda.mont_mul_plain(a, b, field.name), 3)
-        bnd, _ = bound_ms(3 * 64 * n, K1_OPS * n)
+        call = lambda: field_cuda.mont_mul_cuda(a, b, field.name)  # noqa: E731
+        times = record("mont_mul", [[n, W], [n, W], field.name],
+                       device_ms(call, 50, "mont_mul_kernel"),
+                       host_loop_ms(call, 20),
+                       host_loop_ms(lambda: field_cuda.mont_mul_plain(
+                           a, b, field.name), 3),
+                       3 * 64 * n, K1_OPS * n)
         print(f"phase 2 K1 {field.name}: n={n} equal=True max_abs_err={err} "
-              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd:.4f}",
-              flush=True)
+              f"{times}", flush=True)
         del a, b, got, want
+
+        # ragged n, a broadcast constant on either side, 0 / 1 / p-1 pairs
+        for n in (1, 7, 257, (1 << 20) - 3):
+            a = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+            b = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+            if n >= 9:  # every edge value of a against every one of b
+                a[3:9] = a[[0, 1, 2, 0, 1, 2]]
+                b[3:9] = b[[1, 2, 0, 2, 0, 1]]
+            cases = [(a, b)] + [(x, y) for r in range(min(n, 3))
+                                for x, y in ((a, b[r]), (b[r], a))]
+            for x, y in cases:
+                got = field_cuda.mont_mul_cuda(x, y, field.name)
+                want = field_cuda.mont_mul_plain(x, y, field.name)
+                err = int((got.to(torch.int64) - want.reshape(got.shape)
+                           .to(torch.int64)).abs().max())
+                if err:
+                    fail(f"K1 {field.name} n={n} {list(x.shape)}x"
+                         f"{list(y.shape)}: differs from plain by {err}")
+            del a, b, got, want, cases, x, y
+        print(f"phase 2 K1 {field.name}: ragged n=(1, 7, 257, 2^20-3) with "
+              f"[16] constants on either side and 0/1/p-1 pairs: equal=True",
+              flush=True)
 
     # -- 3. K3 against its plain version ---------------------------------------
     pool_n = 4096
@@ -221,12 +275,26 @@ def main() -> int:
         h = pool_host[p_idx[j]].add(pool_host[q_idx[j]])
         if bytes(got_c[j].astype(np.uint8)) != h.to_compressed_bytes():
             fail(f"K3: point {j} differs from the host oracle")
-    ms = cuda_ms(lambda: field_cuda.padd_cuda(pp, qq), 20)
-    plain = cuda_ms(lambda: field_cuda.padd_plain(pp, qq), 3)
-    bnd, _ = bound_ms(3 * 256 * n3, K3_OPS * n3)
+    call = lambda: field_cuda.padd_cuda(pp, qq)  # noqa: E731
+    times = record("padd", [1, 4, W, n3], device_ms(call, 50, "padd_kernel"),
+                   host_loop_ms(call, 20),
+                   host_loop_ms(lambda: field_cuda.padd_plain(pp, qq), 3),
+                   3 * 256 * n3, K3_OPS * n3)
     print(f"phase 3 K3: n={n3} equal=True max_abs_err={k3_err} "
-          f"compressed_equal=True cases=(P+Q, P+P, P+O, P-P) ms={ms:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={bnd:.4f}", flush=True)
+          f"compressed_equal=True cases=(P+Q, P+P, P+O, P-P) {times}",
+          flush=True)
+    # ragged n in K = 3 batches, every case of the addition law
+    for n in (1, 129):
+        sel = [p_idx[:3 * n], q_idx[:3 * n]]
+        pp, qq = (pool[..., torch.as_tensor(i, device=dev)]
+                  .reshape(4, W, 3, n).permute(2, 0, 1, 3).contiguous()
+                  for i in sel)
+        err = int((field_cuda.padd_cuda(pp, qq).to(torch.int64)
+                   - field_cuda.padd_plain(pp, qq).to(torch.int64)).abs().max())
+        if err:
+            fail(f"K3 at [3, 4, 16, {n}]: differs from plain by {err}")
+    print("phase 3 K3: ragged [3,4,16,1] and [3,4,16,129]: equal=True",
+          flush=True)
     del pp, qq, got, want, pool
 
     # -- 4. golden proofs on the card -------------------------------------------
@@ -375,10 +443,6 @@ def main() -> int:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # kernel events only: a CPU op's device time repeats its kernels'
     kernels_ev = sorted((e for e in prof.key_averages()
                          if e.device_type == DeviceType.CUDA
@@ -402,47 +466,69 @@ def main() -> int:
           f"{json.dumps(top)}", flush=True)
 
     # -- 6. each kernel at the main path's dominant shape ----------------------
-    # the shape that carried the most elements over the timed prove
-    (mm_a, mm_b, mm_f), _ = max(
-        shapes["mont_mul"].items(),
-        key=lambda kv: kv[1] * max(np.prod(kv[0][0]), np.prod(kv[0][1])))
-    n_mm = max(int(np.prod(mm_a)), int(np.prod(mm_b))) // W
-    fmm = TFr if mm_f == "Fr" else TFp
-    a = torch.as_tensor(random_limbs(rng, int(np.prod(mm_a)) // W, fmm),
-                        device=dev).reshape(mm_a)
-    b = torch.as_tensor(random_limbs(rng, int(np.prod(mm_b)) // W, fmm),
-                        device=dev).reshape(mm_b)
-    err1 = int((field_cuda.mont_mul_cuda(a, b, mm_f).to(torch.int64)
-                - field_cuda.mont_mul_plain(a, b, mm_f).reshape(-1, W)
-                .to(torch.int64)).abs().max())
-    if err1:
-        fail(f"K1 at the main-path shape {mm_a} x {mm_b}: differs by {err1}")
-    k1_ms = cuda_ms(lambda: field_cuda.mont_mul_cuda(a, b, mm_f), 50)
-    k1_plain = cuda_ms(lambda: field_cuda.mont_mul_plain(a, b, mm_f), 10)
-    k1_bound, k1_by = bound_ms((a.numel() + b.numel() + n_mm * W) * 4,
-                               K1_OPS * n_mm)
+    def dominant(counter):
+        """The shape key that carried the most elements over a prove."""
+        def elems(key):
+            dims = key[:2] if isinstance(key[0], tuple) else (key,)
+            return max(int(np.prod(d)) for d in dims)
+        return max(counter.items(), key=lambda kv: kv[1] * elems(kv[0]))[0]
 
-    pa_shape, _ = max(shapes["padd"].items(),
-                      key=lambda kv: kv[1] * np.prod(kv[0]))
-    kk, _, _, nn = pa_shape
-    sel = torch.as_tensor(rng.integers(0, 2 * pool_n + 1, size=(2, kk * nn)),
-                          device=dev)
     pool = tcurve.from_host_points(pool_host, dev)
-    pp = pool[..., sel[0]].reshape(4, W, kk, nn).permute(2, 0, 1, 3).contiguous()
-    qq = pool[..., sel[1]].reshape(4, W, kk, nn).permute(2, 0, 1, 3).contiguous()
-    err3 = int((field_cuda.padd_cuda(pp, qq).to(torch.int64)
-                - field_cuda.padd_plain(pp, qq).to(torch.int64)).abs().max())
-    if err3:
-        fail(f"K3 at the main-path shape {pa_shape}: differs by {err3}")
-    k3_ms = cuda_ms(lambda: field_cuda.padd_cuda(pp, qq), 50)
-    k3_plain = cuda_ms(lambda: field_cuda.padd_plain(pp, qq), 10)
-    k3_bound, k3_by = bound_ms(3 * 256 * kk * nn, K3_OPS * kk * nn)
-    print(f"phase 6 main-path shapes: K1 {mm_f} {list(mm_a)}x{list(mm_b)} "
-          f"calls={shapes['mont_mul'][(mm_a, mm_b, mm_f)]} equal=True "
-          f"ms={k1_ms:.4f} plain_ms={k1_plain:.4f}; K3 {list(pa_shape)} "
-          f"calls={shapes['padd'][pa_shape]} equal=True ms={k3_ms:.4f} "
-          f"plain_ms={k3_plain:.4f}; distinct_shapes K1="
-          f"{len(shapes['mont_mul'])} K3={len(shapes['padd'])}", flush=True)
+
+    def k1_at(key, what):
+        """K1 against its plain version at a recorded (a, b, field) shape,
+        then timed; returns the phase line's text and the row."""
+        mm_a, mm_b, mm_f = key
+        fmm = TFr if mm_f == "Fr" else TFp
+        n_mm = max(int(np.prod(mm_a)), int(np.prod(mm_b))) // W
+        a = torch.as_tensor(random_limbs(rng, int(np.prod(mm_a)) // W, fmm),
+                            device=dev).reshape(mm_a)
+        b = torch.as_tensor(random_limbs(rng, int(np.prod(mm_b)) // W, fmm),
+                            device=dev).reshape(mm_b)
+        err = int((field_cuda.mont_mul_cuda(a, b, mm_f).to(torch.int64)
+                   - field_cuda.mont_mul_plain(a, b, mm_f).reshape(-1, W)
+                   .to(torch.int64)).abs().max())
+        if err:
+            fail(f"K1 at the {what} shape {mm_a} x {mm_b}: differs by {err}")
+        call = lambda: field_cuda.mont_mul_cuda(a, b, mm_f)  # noqa: E731
+        text = record("mont_mul", [list(mm_a), list(mm_b), mm_f],
+                      device_ms(call, 100, "mont_mul_kernel"),
+                      host_loop_ms(call, 50),
+                      host_loop_ms(lambda: field_cuda.mont_mul_plain(
+                          a, b, mm_f), 10),
+                      (a.numel() + b.numel() + n_mm * W) * 4, K1_OPS * n_mm)
+        return text, timed["mont_mul"][-1]
+
+    def k3_at(shape, what):
+        """K3 against its plain version at a recorded [K, 4, 16, n] shape
+        (random points of the pool), then timed."""
+        kk, _, _, nn = shape
+        sel = torch.as_tensor(
+            rng.integers(0, 2 * pool_n + 1, size=(2, kk * nn)), device=dev)
+        pp, qq = (pool[..., i].reshape(4, W, kk, nn).permute(2, 0, 1, 3)
+                  .contiguous() for i in sel)
+        err = int((field_cuda.padd_cuda(pp, qq).to(torch.int64)
+                   - field_cuda.padd_plain(pp, qq).to(torch.int64)).abs().max())
+        if err:
+            fail(f"K3 at the {what} shape {shape}: differs by {err}")
+        call = lambda: field_cuda.padd_cuda(pp, qq)  # noqa: E731
+        text = record("padd", list(shape), device_ms(call, 100, "padd_kernel"),
+                      host_loop_ms(call, 50),
+                      host_loop_ms(lambda: field_cuda.padd_plain(pp, qq), 10),
+                      3 * 256 * kk * nn, K3_OPS * kk * nn)
+        return text, timed["padd"][-1]
+
+    mm_key, pa_shape = dominant(shapes["mont_mul"]), dominant(shapes["padd"])
+    k1_times, k1_main = k1_at(mm_key, "flagship main-path")
+    k3_times, k3_main = k3_at(pa_shape, "flagship main-path")
+    print(f"phase 6 main-path shapes: K1 {mm_key[2]} {list(mm_key[0])}x"
+          f"{list(mm_key[1])} calls={shapes['mont_mul'][mm_key]} equal=True "
+          f"{k1_times}; K3 {list(pa_shape)} "
+          f"calls={shapes['padd'][pa_shape]} equal=True {k3_times}; "
+          f"distinct_shapes K1={len(shapes['mont_mul'])} "
+          f"K3={len(shapes['padd'])} k3_most_called="
+          f"{[[list(k), c] for k, c in shapes['padd'].most_common(4)]}",
+          flush=True)
 
     # -- 7. K2 against its plain version ---------------------------------------
     def k2_plain(a, b, field):
@@ -485,16 +571,20 @@ def main() -> int:
         if any(g != x * y * r_inv % p for x, y, g in zip(*cols)):
             fail(f"K2 {field.name}: kernel differs from the host oracle")
         elems = k2_k * k2_n
-        ms = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, b, field.name), 20)
-        plain = cuda_ms(lambda: k2_plain(a, b, field.name), 2)
-        ms_c = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, const, field.name),
-                       20)
-        bnd, by = bound_ms(3 * 64 * elems, K1_OPS * elems)
-        bnd_c, _ = bound_ms(2 * 64 * elems + 64, K1_OPS * elems)
+        texts = []
+        for y, y_shape, y_bytes in ((b, [k2_k, W, k2_n], 64 * elems),
+                                    (const, [W, 1], 64)):
+            call = lambda: field_cuda.mont_mul_lm_cuda(  # noqa: E731
+                a, y, field.name)
+            texts.append(record(
+                "mont_mul_lm", [[k2_k, W, k2_n], y_shape, field.name],
+                device_ms(call, 50, "mont_mul_lm_kernel"),
+                host_loop_ms(call, 20),
+                host_loop_ms(lambda: k2_plain(a, y, field.name), 2),
+                2 * 64 * elems + y_bytes, K1_OPS * elems))
         print(f"phase 7 K2 {field.name}: shape=[{k2_k},16,{k2_n}] equal=True "
-              f"max_abs_err=0 ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bnd:.4f} ({by}); broadcast [16,1] constant: "
-              f"equal=True ms={ms_c:.4f} bound_ms={bnd_c:.4f}", flush=True)
+              f"max_abs_err=0 {texts[0]}; broadcast [16,1] constant: "
+              f"equal=True {texts[1]}", flush=True)
         del a, b, const, got
     torch.cuda.empty_cache()
 
@@ -569,30 +659,58 @@ def main() -> int:
                        "prove_launches": p_counts}
         del proof, comm
     # one more fused prove under torch.profiler (device activity only): the
-    # card's busy share.  An unfused prove launches about ten times as many
-    # kernels, and processing their trace would outlast the run's limit.
+    # card's busy share, and K1's and K3's launches, device time and shapes.
+    # An unfused prove launches about ten times as many kernels, and
+    # processing their trace would outlast the run's limit.
     tcurve.set_fused_padd(True)
+    jd_shapes = {"mont_mul": collections.Counter(),
+                 "padd": collections.Counter()}
+
+    def jd_mm(a, b, field):
+        jd_shapes["mont_mul"][(tuple(a.shape), tuple(b.shape), field)] += 1
+        return orig_mm(a, b, field)
+
+    def jd_pa(p, q):
+        jd_shapes["padd"][tuple(p.shape)] += 1
+        return orig_pa(p, q)
+
+    field_cuda.reset_launch_counts()
+    field_cuda.mont_mul_cuda, field_cuda.padd_cuda = jd_mm, jd_pa
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bench.prove(jd)
         torch.cuda.synchronize()
         jd_prof_ms = (time.perf_counter() - t0) * 1e3
+    field_cuda.mont_mul_cuda, field_cuda.padd_cuda = orig_mm, orig_pa
+    jd_counts = dict(field_cuda.launch_counts)
+    if jd_counts["mont_mul"] <= 0 or jd_counts["padd"] <= 0:
+        fail(f"fused jolt-demo prove did not launch K1 and K3: {jd_counts}")
     jd_kernels = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     jd_busy_ms = sum(device_us(e) for e in jd_kernels) / 1e3
-    jd_k3_ms = sum(device_us(e) for e in jd_kernels
-                   if "padd_kernel" in e.key) / 1e3
-    if jd_busy_ms > 0:
-        print(f"phase 8 jolt-demo profiled fused prove: device_busy_ms="
-              f"{jd_busy_ms:.1f} profiled_wall_ms={jd_prof_ms:.1f} "
-              f"busy_share_profiled={jd_busy_ms / jd_prof_ms:.3f} "
-              f"busy_share_of_prove_s="
-              f"{jd_busy_ms / (runs['fused']['prove_s'] * 1e3):.3f} "
-              f"kernel_launches={sum(e.count for e in jd_kernels)} "
-              f"k3_ms={jd_k3_ms:.2f}", flush=True)
-    else:
-        print("phase 8 jolt-demo profiled fused prove: device time not "
-              "measured (the profiler saw no device time)", flush=True)
+    jd_ms = {name: sum(device_us(e) for e in jd_kernels if name in e.key) / 1e3
+             for name in ("mont_mul_kernel", "padd_kernel")}
+    jd_mm_key, jd_pa_shape = (dominant(jd_shapes["mont_mul"]),
+                              dominant(jd_shapes["padd"]))
+    if jd_busy_ms <= 0:
+        fail("the profiler saw no device time in the fused jolt-demo prove")
+    print(f"phase 8 jolt-demo profiled fused prove: device_busy_ms="
+          f"{jd_busy_ms:.1f} profiled_wall_ms={jd_prof_ms:.1f} "
+          f"busy_share_profiled={jd_busy_ms / jd_prof_ms:.3f} "
+          f"busy_share_of_prove_s="
+          f"{jd_busy_ms / (runs['fused']['prove_s'] * 1e3):.3f} "
+          f"kernel_launches={sum(e.count for e in jd_kernels)} "
+          f"launches={json.dumps(jd_counts)} "
+          f"k1_ms={jd_ms['mont_mul_kernel']:.2f} "
+          f"k3_ms={jd_ms['padd_kernel']:.2f} "
+          f"k1_dominant={jd_mm_key[2]} {list(jd_mm_key[0])}x"
+          f"{list(jd_mm_key[1])} ({jd_shapes['mont_mul'][jd_mm_key]} calls, "
+          f"{len(jd_shapes['mont_mul'])} shapes) "
+          f"k3_dominant={list(jd_pa_shape)} "
+          f"({jd_shapes['padd'][jd_pa_shape]} calls, "
+          f"{len(jd_shapes['padd'])} shapes) k3_most_called="
+          f"{[[list(k), c] for k, c in jd_shapes['padd'].most_common(4)]}",
+          flush=True)
     os.environ.pop("LASSO_TPU_PALLAS_PADD")
     tcurve.set_fused_padd(True)
     if runs["unfused"]["entry"] != runs["fused"]["entry"]:
@@ -613,6 +731,12 @@ def main() -> int:
           flush=True)
     del jd
     torch.cuda.empty_cache()
+    jd_k1_times, _ = k1_at(jd_mm_key, "fused jolt-demo")
+    jd_k3_times, _ = k3_at(jd_pa_shape, "fused jolt-demo")
+    print(f"phase 8 jolt-demo fused main-path shapes: K1 {jd_mm_key[2]} "
+          f"{list(jd_mm_key[0])}x{list(jd_mm_key[1])} equal=True "
+          f"{jd_k1_times}; K3 {list(jd_pa_shape)} equal=True {jd_k3_times}",
+          flush=True)
 
     # -- 9. K2 at the unfused jolt-demo prove's dominant shape -----------------
     (lm_a, lm_b, lm_f), lm_calls = max(
@@ -625,41 +749,48 @@ def main() -> int:
     b = (limb_major(flm, lm_b[0], lm_b[2]) if len(lm_b) == 3
          else limb_major(flm, 1, 1)[0])
     err2 = k2_check(a, b, lm_f, f"at {lm_a} x {lm_b}")
-    k2_ms = cuda_ms(lambda: field_cuda.mont_mul_lm_cuda(a, b, lm_f), 50)
-    k2_plain_ms = cuda_ms(lambda: k2_plain(a, b, lm_f), 5)
     n_lm = int(np.prod(out_shape)) // W
-    k2_bound, k2_by = bound_ms((a.numel() + b.numel() + n_lm * W) * 4,
-                               K1_OPS * n_lm)
+    call = lambda: field_cuda.mont_mul_lm_cuda(a, b, lm_f)  # noqa: E731
+    k2_times = record("mont_mul_lm", [list(lm_a), list(lm_b), lm_f],
+                      device_ms(call, 100, "mont_mul_lm_kernel"),
+                      host_loop_ms(call, 50),
+                      host_loop_ms(lambda: k2_plain(a, b, lm_f), 5),
+                      (a.numel() + b.numel() + n_lm * W) * 4, K1_OPS * n_lm)
+    k2_main = timed["mont_mul_lm"][-1]
     print(f"phase 9 main-path shape: K2 {lm_f} {list(lm_a)}x{list(lm_b)} "
-          f"calls={lm_calls} equal=True ms={k2_ms:.4f} "
-          f"plain_ms={k2_plain_ms:.4f} bound_ms={k2_bound:.4f}; "
+          f"calls={lm_calls} equal=True {k2_times}; "
           f"distinct_shapes K2={len(k2_shapes)}", flush=True)
 
+    def kernel_row(name, source, replaces, launches, err, main, by_path):
+        """The kernels line's entry: the contract's keys at the main path's
+        shape ("ms" is the kernel's device time per launch there), then
+        every timed shape and the launches on each path."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "equal": True, "max_abs_err": err, "ms": main["device_ms"],
+                "host_loop_ms": main["host_loop_ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None,
+                "shape": main["shape"], "launches_by_path": by_path,
+                "timed": timed[name.split()[0]]}
+
     kernels = {"kernels": [
-        {"name": "mont_mul (K1)", "route": "cuda",
-         "source": "lasso_tpu_torch/csrc/mont_mul.cu",
-         "replaces": "lasso_tpu/ops/field_pallas.py:94",
-         "launches": prove_counts["mont_mul"],
-         "equal": True, "max_abs_err": max(k1["max_abs_err"], err1),
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None,
-         "shape": [list(mm_a), list(mm_b), mm_f]},
-        {"name": "mont_mul_lm (K2)", "route": "cuda",
-         "source": "lasso_tpu_torch/csrc/mont_mul_lm.cu",
-         "replaces": "lasso_tpu/ops/field_pallas.py:111",
-         "launches": cli_counts["mont_mul_lm"],
-         "equal": True, "max_abs_err": max(k2["max_abs_err"], err2),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None,
-         "shape": [list(lm_a), list(lm_b), lm_f]},
-        {"name": "padd (K3)", "route": "cuda",
-         "source": "lasso_tpu_torch/csrc/padd.cu",
-         "replaces": "lasso_tpu/ops/field_pallas.py:232",
-         "launches": prove_counts["padd"],
-         "equal": True, "max_abs_err": max(k3_err, err3),
-         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None,
-         "shape": list(pa_shape)},
+        kernel_row("mont_mul (K1)", "lasso_tpu_torch/csrc/mont_mul.cu",
+                   "lasso_tpu/ops/field_pallas.py:95",
+                   prove_counts["mont_mul"], k1["max_abs_err"], k1_main,
+                   {"flagship_prove": prove_counts["mont_mul"],
+                    "jolt_demo_fused_prove": jd_counts["mont_mul"]}),
+        kernel_row("mont_mul_lm (K2)", "lasso_tpu_torch/csrc/mont_mul_lm.cu",
+                   "lasso_tpu/ops/field_pallas.py:112",
+                   cli_counts["mont_mul_lm"], max(k2["max_abs_err"], err2),
+                   k2_main,
+                   {"jolt_demo_unfused_cli_pass": cli_counts["mont_mul_lm"],
+                    "jolt_demo_unfused_prove": u_counts["mont_mul_lm"]}),
+        kernel_row("padd (K3)", "lasso_tpu_torch/csrc/padd.cu",
+                   "lasso_tpu/ops/field_pallas.py:234",
+                   prove_counts["padd"], k3_err, k3_main,
+                   {"flagship_prove": prove_counts["padd"],
+                    "jolt_demo_fused_prove": jd_counts["padd"]}),
     ]}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card_line()} total_s={time.perf_counter() - t_start:.1f}",

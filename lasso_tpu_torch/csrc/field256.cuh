@@ -11,8 +11,14 @@
 // The port's tensors hold 16-bit limbs in int32; load16/store16 pack two
 // limbs into each 32-bit word and back.
 //
-// Everything here is __host__ __device__ and uses no CUDA intrinsics, so a
-// host compiler can build it as well.
+// Two implementations of the same arithmetic:
+//   - f256::mont_mul, add_mod, sub_mod: portable __host__ __device__ C++ in
+//     uint64_t, with no CUDA intrinsics, so a host compiler builds them too
+//     (the CPU tests hold them against the plain versions).  K2 uses them.
+//   - f256::dev: device-only, on PTX carry chains (mad.lo.cc / madc.hi.cc /
+//     addc.cc), seen only by nvcc.  K1 uses dev::mont_mul; K3 uses
+//     dev::P25519Ops, whose products reduce with p = 2^255 - 19's form.
+// Both give the same canonical words for the same inputs.
 
 #pragma once
 
@@ -33,11 +39,12 @@ struct Modulus {
   uint32_t n0;  // -p^{-1} mod 2^32
 };
 
-// Twisted Edwards curve over Fp: a*x^2 + y^2 = 1 + d*x^2*y^2.
+// Twisted Edwards curve over Fp: a*x^2 + y^2 = 1 + d*x^2*y^2, with small a
+// and d: a product with either is x*a mod p (mul_small_p25519), the same
+// value as the Montgomery product with a * 2^256 mod p.
 struct Curve {
   Modulus fp;
-  uint32_t a[N];  // a * 2^256 mod p (Montgomery form)
-  uint32_t d[N];  // d * 2^256 mod p
+  uint32_t a, d;
 };
 
 // Fr = 2^252 + 27742317777372353535851937790883648493 (curve25519's scalar field)
@@ -55,11 +62,7 @@ F256_HD Modulus fp_modulus() {
 }
 
 // ark-curve25519's twisted Edwards form: a = 486664, d = 486660.
-F256_HD Curve curve25519() {
-  return Curve{fp_modulus(),
-               {0x011a2f30u, 0u, 0u, 0u, 0u, 0u, 0u, 0u},
-               {0x011a2e98u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
-}
+F256_HD Curve curve25519() { return Curve{fp_modulus(), 486664u, 486660u}; }
 
 // x - p into r; returns the final borrow (1 when x < p).
 F256_HD uint32_t sub_words(uint32_t r[N], const uint32_t x[N],
@@ -149,32 +152,141 @@ F256_HD void sub_mod(uint32_t out[N], const uint32_t a[N],
   for (int i = 0; i < N; ++i) out[i] = borrow ? r[i] : d[i];
 }
 
+// x * k mod p for Fp = 2^255 - 19 only, canonical x and k < 2^32: the
+// product, then the bits from 2^255 up folded back in times 19 (2^255 = 19
+// mod p), then one conditional subtract.
+F256_HD void mul_small_p25519(uint32_t out[N], const uint32_t x[N], uint32_t k,
+                              const Modulus& m) {
+  uint32_t w[N];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint64_t s = (uint64_t)x[i] * k + c;
+    w[i] = (uint32_t)s;
+    c = s >> 32;
+  }
+  const uint64_t h = (c << 1) | (w[N - 1] >> 31);  // x*k >> 255, < 2^33
+  w[N - 1] &= 0x7fffffffu;
+  c = h * 19u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {  // < 2^255 + 2^38 < 2p
+    const uint64_t s = (uint64_t)w[i] + (uint32_t)c;
+    w[i] = (uint32_t)s;
+    c = (c >> 32) + (s >> 32);
+  }
+  uint32_t r[N];
+  const uint32_t borrow = sub_words(r, w, m.p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = borrow ? w[i] : r[i];
+}
+
+// The portable arithmetic as an Ops policy for the templates below.
+struct PortableOps {
+  F256_HD static void mul(uint32_t o[N], const uint32_t a[N],
+                          const uint32_t b[N], const Modulus& m) {
+    mont_mul(o, a, b, m);
+  }
+  F256_HD static void add(uint32_t o[N], const uint32_t a[N],
+                          const uint32_t b[N], const Modulus& m) {
+    add_mod(o, a, b, m);
+  }
+  F256_HD static void sub(uint32_t o[N], const uint32_t a[N],
+                          const uint32_t b[N], const Modulus& m) {
+    sub_mod(o, a, b, m);
+  }
+  F256_HD static void mul_small(uint32_t o[N], const uint32_t a[N], uint32_t k,
+                                const Modulus& m) {
+    mul_small_p25519(o, a, k, m);
+  }
+};
+
 // Complete unified addition add-2008-hwcd on extended coordinates
-// (X, Y, Z, T) in Montgomery form: 9 general and 2 constant products.
-// P+P, P+identity and P+(-P) need no special case (a square, d not).
+// (X, Y, Z, T) in Montgomery form, 9 general and 2 constant products,
+// split over a pair of lanes as K3 runs it.  P+P, P+identity and P+(-P)
+// need no special case (a square, d not).
+//
+// Lane 0 holds X and Y of both points (u = X, v = Y), lane 1 holds Z and T
+// (u = Z, v = T).  Both lanes run the same products on their own operands:
+//   first:  lane 0: A = X1*X2, B = Y1*Y2, a*A, E' = (X1+Y1)(X2+Y2)
+//                   -> f = E = E' - A - B, g = H = B - a*A
+//           lane 1: D = Z1*Z2, T1*T2, C = d*T1*T2
+//                   -> f = F = D - C,      g = G = D + C
+//   (the lanes exchange f and g: o1, o2 are the partner's)
+//   second: lane 0: X3 = E*F, T3 = E*H;  lane 1: Y3 = G*H, Z3 = F*G.
+// Every intermediate is the canonical value of padd_plain's, so the
+// projective limbs out are equal to the plain version's.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ops>
+F256_HD void padd_pair_first(uint32_t f[N], uint32_t g[N],
+                             const uint32_t u1[N], const uint32_t v1[N],
+                             const uint32_t u2[N], const uint32_t v2[N],
+                             int lane, const Curve& c) {
+  const Modulus& m = c.fp;
+  uint32_t r1[N], r2[N], r3[N], x[N];
+  Ops::mul(r1, u1, u2, m);        // A = X1*X2      | D = Z1*Z2
+  Ops::mul(r2, v1, v2, m);        // B = Y1*Y2      | T1*T2
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j] = lane ? r2[j] : r1[j];
+  Ops::mul_small(r3, x, lane ? c.d : c.a, m);  // a*A | C = d*T1*T2
+  if (lane) {
+    Ops::sub(f, r1, r3, m);       // F = D - C
+    Ops::add(g, r1, r3, m);       // G = D + C
+  } else {
+    uint32_t s[N], t[N];
+    Ops::add(s, u1, v1, m);       // X1+Y1
+    Ops::add(t, u2, v2, m);       // X2+Y2
+    Ops::mul(x, s, t, m);
+    Ops::sub(x, x, r1, m);
+    Ops::sub(f, x, r2, m);        // E = (X1+Y1)(X2+Y2) - A - B
+    Ops::sub(g, r2, r3, m);       // H = B - a*A
+  }
+}
+
+// r5 = X3 (lane 0) or Y3 (lane 1); r6 = T3 (lane 0) or Z3 (lane 1).
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ops>
+F256_HD void padd_pair_second(uint32_t r5[N], uint32_t r6[N],
+                              const uint32_t f[N], const uint32_t g[N],
+                              const uint32_t o1[N], const uint32_t o2[N],
+                              int lane, const Curve& c) {
+  uint32_t x[N], y[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    x[j] = lane ? g[j] : f[j];
+    y[j] = lane ? o2[j] : o1[j];
+  }
+  Ops::mul(r5, x, y, c.fp);       // X3 = E*F       | Y3 = G*H
+  Ops::mul(r6, f, g, c.fp);       // T3 = E*H       | Z3 = F*G
+}
+
+// The whole sum in one thread: both lanes of the pair in turn.
 F256_HD void padd_point(uint32_t out[4][N], const uint32_t p1[4][N],
                         const uint32_t p2[4][N], const Curve& c) {
-  const Modulus& m = c.fp;
-  uint32_t A[N], B[N], C[N], D[N], E[N], F[N], G[N], H[N], s[N], u[N];
-  mont_mul(A, p1[0], p2[0], m);   // X1*X2
-  mont_mul(B, p1[1], p2[1], m);   // Y1*Y2
-  mont_mul(s, p1[3], p2[3], m);   // T1*T2
-  mont_mul(C, s, c.d, m);         // d*T1*T2
-  mont_mul(D, p1[2], p2[2], m);   // Z1*Z2
-  add_mod(s, p1[0], p1[1], m);    // X1+Y1
-  add_mod(u, p2[0], p2[1], m);    // X2+Y2
-  mont_mul(E, s, u, m);
-  sub_mod(E, E, A, m);
-  sub_mod(E, E, B, m);            // E = (X1+Y1)(X2+Y2) - A - B
-  sub_mod(F, D, C, m);            // F = D - C
-  add_mod(G, D, C, m);            // G = D + C
-  mont_mul(s, A, c.a, m);
-  sub_mod(H, B, s, m);            // H = B - a*A
-  mont_mul(out[0], E, F, m);
-  mont_mul(out[1], G, H, m);
-  mont_mul(out[2], F, G, m);
-  mont_mul(out[3], E, H, m);
+  uint32_t f[2][N], g[2][N];
+  for (int lane = 0; lane < 2; ++lane)
+    padd_pair_first<PortableOps>(f[lane], g[lane], p1[2 * lane],
+                                 p1[2 * lane + 1], p2[2 * lane],
+                                 p2[2 * lane + 1], lane, c);
+  for (int lane = 0; lane < 2; ++lane)
+    padd_pair_second<PortableOps>(out[lane ? 1 : 0], out[lane ? 2 : 3],
+                                  f[lane], g[lane], f[1 - lane], g[1 - lane],
+                                  lane, c);
 }
+
+// K1's shared-memory tile: element e's 16-byte chunk c (its limbs 4c..4c+3)
+// sits at chunk slot 4e + (c ^ ((e >> 1) & 3)).  Within one element the
+// map permutes the four chunks, so it is a bijection of [0, 4T) for any
+// tile of T elements.  A 16-byte shared-memory access is served 8 threads
+// at a time, and the 32 banks hold 8 chunks per row: with an unswizzled
+// 64-byte row stride, 8 threads reading chunk c of 8 neighbouring elements
+// hit 2 distinct bank groups (4-way conflict); with the swizzle their slots
+// fall in 8 distinct ones, as do the slots of 8 neighbouring chunks that 8
+// threads copy in from device memory.
+F256_HD int tile_slot(int e, int c) { return 4 * e + (c ^ ((e >> 1) & 3)); }
 
 // 16 int32-held 16-bit limbs at stride `stride` -> 8 words.
 F256_HD void load16(uint32_t w[N], const int32_t* src, int64_t stride) {
@@ -194,5 +306,278 @@ F256_HD void store16(int32_t* dst, const uint32_t w[N], int64_t stride) {
     dst[(2 * i + 1) * stride] = (int32_t)(w[i] >> 16);
   }
 }
+
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// Device-only arithmetic on PTX carry chains (K1 and K3).
+//
+// The portable mont_mul above writes each CIOS step as a 64-bit multiply
+// plus 64-bit adds and a shift; nvcc turns that into a wide multiply and
+// separate carry arithmetic.  Here each row of the product is two carry
+// chains of 32-bit multiply-adds (low halves, then high halves one word
+// up), with the carries in the hardware's carry flag: 264 multiply-add
+// instructions per product (8 rows of a*b[i] and 8 of q*p, 16 each, plus
+// the 8 q), no 64-bit temporaries.  A carry chain must not be split across
+// asm statements (nothing keeps the flag between them), so each chain is
+// one statement.
+// ---------------------------------------------------------------------------
+namespace dev {
+
+// t[0..9] += a * bi: the low halves into t[0..7], the high halves into
+// t[1..8], every carry up to t[9].
+__device__ __forceinline__ void mac_row(uint32_t t[N + 2], const uint32_t a[N],
+                                        uint32_t bi) {
+  asm(
+      "mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "addc.cc.u32 %8, %8, 0;\n\t"
+      "addc.u32 %9, %9, 0;\n\t"
+      "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32 %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(bi));
+}
+
+// t[0..8] < 2p -> the canonical t mod p: subtract p once and keep the
+// difference unless it borrowed past t[8].
+__device__ __forceinline__ void reduce_once(uint32_t out[N],
+                                            const uint32_t t[N + 1],
+                                            const uint32_t p[N]) {
+  uint32_t r[N], top;
+  asm(
+      "sub.cc.u32 %0, %9, %18;\n\t"
+      "subc.cc.u32 %1, %10, %19;\n\t"
+      "subc.cc.u32 %2, %11, %20;\n\t"
+      "subc.cc.u32 %3, %12, %21;\n\t"
+      "subc.cc.u32 %4, %13, %22;\n\t"
+      "subc.cc.u32 %5, %14, %23;\n\t"
+      "subc.cc.u32 %6, %15, %24;\n\t"
+      "subc.cc.u32 %7, %16, %25;\n\t"
+      "subc.u32 %8, %17, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(top)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(p[0]), "r"(p[1]), "r"(p[2]),
+        "r"(p[3]), "r"(p[4]), "r"(p[5]), "r"(p[6]), "r"(p[7]));
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = top ? t[i] : r[i];
+}
+
+// Montgomery product a*b*2^-256 mod p for canonical a, b < p (CIOS).
+__device__ __forceinline__ void mont_mul(uint32_t out[N], const uint32_t a[N],
+                                         const uint32_t b[N],
+                                         const Modulus& m) {
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int i = 0; i < N + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mac_row(t, a, b[i]);                // t += a * b[i]
+    mac_row(t, m.p, t[0] * m.n0);       // t += q * p, t[0] becomes 0
+#pragma unroll
+    for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];  // t /= 2^32
+    t[N + 1] = 0;
+  }
+  reduce_once(out, t, m.p);
+}
+
+// t[0..9] += q * (2^255 - 19) = q * 2^255 - 19 * q, modulo 2^320 (the sum
+// itself is in range): one multiply and two short carry chains instead of a
+// row of 16 multiply-adds.
+__device__ __forceinline__ void mac_p25519(uint32_t t[N + 2], uint32_t q) {
+  const uint32_t lo = q * 19u, hi = __umulhi(q, 19u);
+  asm(
+      "sub.cc.u32 %0, %0, %10;\n\t"
+      "subc.cc.u32 %1, %1, %11;\n\t"
+      "subc.cc.u32 %2, %2, 0;\n\t"
+      "subc.cc.u32 %3, %3, 0;\n\t"
+      "subc.cc.u32 %4, %4, 0;\n\t"
+      "subc.cc.u32 %5, %5, 0;\n\t"
+      "subc.cc.u32 %6, %6, 0;\n\t"
+      "subc.cc.u32 %7, %7, 0;\n\t"
+      "subc.cc.u32 %8, %8, 0;\n\t"
+      "subc.u32 %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(lo), "r"(hi));
+  asm(
+      "add.cc.u32 %0, %0, %3;\n\t"
+      "addc.cc.u32 %1, %1, %4;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(q << 31), "r"(q >> 1));
+}
+
+// Montgomery product for Fp = 2^255 - 19 only (m must be fp_modulus()):
+// the reduction rows as q * 2^255 - 19 * q.  The same canonical result as
+// mont_mul.
+__device__ __forceinline__ void mont_mul_p25519(uint32_t out[N],
+                                                const uint32_t a[N],
+                                                const uint32_t b[N],
+                                                const Modulus& m) {
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int i = 0; i < N + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mac_row(t, a, b[i]);                // t += a * b[i]
+    mac_p25519(t, t[0] * m.n0);         // t += q * p, t[0] becomes 0
+#pragma unroll
+    for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];  // t /= 2^32
+    t[N + 1] = 0;
+  }
+  reduce_once(out, t, m.p);
+}
+
+// x * k mod p for Fp = 2^255 - 19 only (as f256::mul_small_p25519).
+__device__ __forceinline__ void mul_small_p25519(uint32_t out[N],
+                                                 const uint32_t x[N],
+                                                 uint32_t k, const Modulus& m) {
+  uint32_t w[N + 1];
+  asm(
+      "mul.lo.u32 %0, %9, %17;\n\t"
+      "mul.lo.u32 %1, %10, %17;\n\t"
+      "mul.lo.u32 %2, %11, %17;\n\t"
+      "mul.lo.u32 %3, %12, %17;\n\t"
+      "mul.lo.u32 %4, %13, %17;\n\t"
+      "mul.lo.u32 %5, %14, %17;\n\t"
+      "mul.lo.u32 %6, %15, %17;\n\t"
+      "mul.lo.u32 %7, %16, %17;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, 0;"
+      : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]), "=r"(w[4]),
+        "=r"(w[5]), "=r"(w[6]), "=r"(w[7]), "=r"(w[8])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]),
+        "r"(x[6]), "r"(x[7]), "r"(k));
+  const uint32_t h = (w[N] << 1) | (w[N - 1] >> 31);  // x*k >> 255
+  w[N - 1] &= 0x7fffffffu;
+  asm(
+      "mad.lo.cc.u32 %0, %8, %9, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %9, %1;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "addc.cc.u32 %6, %6, 0;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4]),
+        "+r"(w[5]), "+r"(w[6]), "+r"(w[7])
+      : "r"(h), "r"(19u));
+  w[N] = 0;  // < 2^255 + 19 * 2^32 < 2p
+  reduce_once(out, w, m.p);
+}
+
+// (a + b) mod p for canonical a, b.
+__device__ __forceinline__ void add_mod(uint32_t out[N], const uint32_t a[N],
+                                        const uint32_t b[N],
+                                        const Modulus& m) {
+  uint32_t s[N + 1];
+  s[N] = 0;
+  asm(
+      "add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]),
+        "=r"(s[5]), "=r"(s[6]), "=r"(s[7]), "+r"(s[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  reduce_once(out, s, m.p);
+}
+
+// (a - b) mod p for canonical a, b: the difference, plus p where it
+// borrowed.
+__device__ __forceinline__ void sub_mod(uint32_t o[N], const uint32_t a[N],
+                                        const uint32_t b[N],
+                                        const Modulus& m) {
+  uint32_t d[N], q[N], mask = 0;
+  asm(
+      "sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %8, 0;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "+r"(mask)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+#pragma unroll
+  for (int i = 0; i < N; ++i) q[i] = m.p[i] & mask;
+  asm(
+      "add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=r"(o[0]), "=r"(o[1]), "=r"(o[2]), "=r"(o[3]), "=r"(o[4]),
+        "=r"(o[5]), "=r"(o[6]), "=r"(o[7])
+      : "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]), "r"(d[4]), "r"(d[5]),
+        "r"(d[6]), "r"(d[7]), "r"(q[0]), "r"(q[1]), "r"(q[2]), "r"(q[3]),
+        "r"(q[4]), "r"(q[5]), "r"(q[6]), "r"(q[7]));
+}
+
+// The carry-chain arithmetic for Fp = 2^255 - 19 only, as an Ops policy for
+// padd_pair_first/second (K3).
+struct P25519Ops {
+  __device__ __forceinline__ static void mul(uint32_t o[N], const uint32_t a[N],
+                                             const uint32_t b[N],
+                                             const Modulus& m) {
+    dev::mont_mul_p25519(o, a, b, m);
+  }
+  __device__ __forceinline__ static void add(uint32_t o[N], const uint32_t a[N],
+                                             const uint32_t b[N],
+                                             const Modulus& m) {
+    dev::add_mod(o, a, b, m);
+  }
+  __device__ __forceinline__ static void sub(uint32_t o[N], const uint32_t a[N],
+                                             const uint32_t b[N],
+                                             const Modulus& m) {
+    dev::sub_mod(o, a, b, m);
+  }
+  __device__ __forceinline__ static void mul_small(uint32_t o[N],
+                                                   const uint32_t a[N],
+                                                   uint32_t k,
+                                                   const Modulus& m) {
+    dev::mul_small_p25519(o, a, k, m);
+  }
+};
+
+}  // namespace dev
+#endif  // __CUDACC__
 
 }  // namespace f256

@@ -6,21 +6,39 @@
 // 9 general and 2 constant Montgomery products, on the port's limb-major
 // [K, 4, 16, n] int32 layout.  pdbl is padd(P, P).
 //
-// What bounds it: memory.  Each sum reads 2 x 256 B and writes 256 B (64
-// int32-held limbs per point) against 11 x 136 = 1496 32x32->64-bit
-// multiplies (2992 32-bit multiply instructions); at the card's 3.35 TB/s
-// and ~67 T 32-bit ops/s the bytes take about 5x as long as the multiplies.
-// Registers are the scarce resource: two input points, the result and the
-// formula's temporaries are live at once.
+// What bounds it on the H100: the integer pipes, then memory.  Each sum
+// reads 2 x 256 B and writes 256 B (64 int32-held limbs per point) against
+// 11 products of 272 32-bit multiply instructions each in the general
+// CIOS count.  The card issues 32-bit integer multiplies at 64 per clock
+// per SM (132 SMs, ~16.7e12/s at 1980 MHz) against 3.35 TB/s: at 2^16
+// points the bytes take 15.0 us and the multiplies 11.7 us.  In practice
+// the instruction stream sets the time: every multiply-add with a carry
+// is two SASS instructions (IMAD or IMAD.HI, then IADD3.X), and the
+// chains of carries leave little to overlap.
 //
-// Design: one point per thread with the whole formula in registers
-// (field256.cuh:padd_point), so no intermediate product ever leaves the
-// SM.  Thread i of batch k reads limb j of coordinate c at
-// ((k*4 + c)*16 + j)*n + i: neighbouring threads read neighbouring
-// addresses, every load and store is coalesced, and the layout needs no
-// transpose at the boundary.  Blocks are kept at 128 threads because of
-// the register footprint.  The kernel allocates nothing and launches on
-// the caller's stream.
+// Design:
+//   - Fewer instructions per sum.  The products run on PTX carry chains
+//     (f256::dev::P25519Ops); their reduction rows use p = 2^255 - 19's
+//     form, q * 2^255 - 19 * q, one multiply and two short chains instead
+//     of 16 multiply-adds; the two constant products (a = 486664,
+//     d = 486660) are x * k mod p, eight multiplies and a fold, instead of
+//     Montgomery products with a * 2^256 and d * 2^256.  Each gives the
+//     same canonical value as padd_plain's product.
+//   - Two lanes per point.  The even lane holds X and Y of both points,
+//     the odd lane Z and T; both run the same products on their own
+//     operands, exchange two field elements each through __shfl_xor_sync,
+//     and finish two of the four output products each
+//     (f256::padd_pair_first/second: 5 full product steps and one constant
+//     product per lane, twice the warps of one point per thread).  The
+//     formula and its order are padd_plain's, so the projective limbs are
+//     equal.
+//   - Loads and stores stay coalesced: lane pair i reads limb j of
+//     coordinate c at ((k*4 + c)*16 + j)*n + i, so the even lanes of a warp
+//     read 16 neighbouring addresses of one coordinate and the odd lanes
+//     16 of another; the layout needs no transpose at the boundary.
+//   - The ragged edge: a pair past the last point computes on the last
+//     point (it must still join the shuffle) and stores nothing.
+// The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,25 +47,45 @@
 
 namespace {
 
-__global__ void padd_kernel(const int32_t* __restrict__ p,
-                            const int32_t* __restrict__ q,
-                            int32_t* __restrict__ out, int64_t k, int64_t n,
-                            f256::Curve c) {
-  int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= k * n) return;
-  int64_t kk = idx / n;
-  int64_t i = idx - kk * n;
-  int64_t base = kk * 64 * n + i;
-  uint32_t a[4][f256::N], b[4][f256::N], r[4][f256::N];
+// Threads per block (two per point), chosen from the ptxas report and a
+// sweep on the card (lasso_tpu_torch/benches/kernel_sweep.py --sweep).
+constexpr int kThreads = 128;
+static_assert(kThreads % 32 == 0, "whole warps: every lane joins the shuffle");
+
+__global__ void __launch_bounds__(kThreads)
+    padd_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
+                int32_t* __restrict__ out, int64_t k, int64_t n,
+                f256::Curve c) {
+  using f256::N;
+  const int64_t total = k * n;
+  const int64_t pt = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 1;
+  const int lane = threadIdx.x & 1;
+  const bool live = pt < total;
+  const int64_t ptc = live ? pt : total - 1;
+  const int64_t kk = ptc / n;
+  const int64_t base = kk * 64 * n + (ptc - kk * n);
+  const int64_t coord = 16 * n;  // distance between coordinates
+
+  // this lane's two coordinates of each point: (X, Y) or (Z, T)
+  uint32_t u1[N], v1[N], u2[N], v2[N];
+  const int64_t own = base + 2 * lane * coord;
+  f256::load16(u1, p + own, n);
+  f256::load16(v1, p + own + coord, n);
+  f256::load16(u2, q + own, n);
+  f256::load16(v2, q + own + coord, n);
+
+  uint32_t f[N], g[N], o1[N], o2[N];
+  f256::padd_pair_first<f256::dev::P25519Ops>(f, g, u1, v1, u2, v2, lane, c);
 #pragma unroll
-  for (int co = 0; co < 4; ++co) {
-    f256::load16(a[co], p + base + co * 16 * n, n);
-    f256::load16(b[co], q + base + co * 16 * n, n);
+  for (int j = 0; j < N; ++j) {
+    o1[j] = __shfl_xor_sync(0xffffffffu, f[j], 1);
+    o2[j] = __shfl_xor_sync(0xffffffffu, g[j], 1);
   }
-  f256::padd_point(r, a, b, c);
-#pragma unroll
-  for (int co = 0; co < 4; ++co) {
-    f256::store16(out + base + co * 16 * n, r[co], n);
+  uint32_t r5[N], r6[N];
+  f256::padd_pair_second<f256::dev::P25519Ops>(r5, r6, f, g, o1, o2, lane, c);
+  if (live) {
+    f256::store16(out + base + (lane ? 1 : 0) * coord, r5, n);  // X3 | Y3
+    f256::store16(out + base + (lane ? 2 : 3) * coord, r6, n);  // T3 | Z3
   }
 }
 
@@ -56,9 +94,8 @@ __global__ void padd_kernel(const int32_t* __restrict__ p,
 extern "C" int lasso_padd(const int32_t* p, const int32_t* q, int32_t* out,
                           int64_t k, int64_t n, void* stream) {
   if (k <= 0 || n <= 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (k * n + threads - 1) / threads;
-  padd_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (2 * k * n + kThreads - 1) / kThreads;
+  padd_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       p, q, out, k, n, f256::curve25519());
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,10 @@ K3 the fused one.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, and the wrapper raises if the kernel cannot take it.  There is no
-fallback from one to the other.
+fallback from one to the other.  K1 copies its operands as 16-byte chunks,
+so `mont_mul_cuda` raises on an operand that is not 16-byte aligned; the
+dispatcher `mont_mul` hands it aligned operands (a row-major [n, 16] view
+is aligned wherever its storage is, since a row is 64 B).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles each source
 into its own shared library with a plain C entry point (bound with ctypes),
@@ -222,13 +225,15 @@ def _check_launch(rc: int, name: str) -> None:
                            f"cudaError {rc}")
 
 
-def _check_operand(x: torch.Tensor, what: str) -> None:
+def _check_operand(x: torch.Tensor, what: str, align: int = 4) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
         raise TypeError(f"{what}: expected int32 limbs, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+    if x.data_ptr() % align:
+        raise ValueError(f"{what}: expected a {align}-byte aligned tensor")
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +241,11 @@ def _check_operand(x: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
-    """Launch K1 on contiguous int32 CUDA limbs: a [n, 16] and b [n, 16],
-    or either one a single [16] (or [1, 16]) element broadcast to all n."""
-    _check_operand(a, "mont_mul a")
-    _check_operand(b, "mont_mul b")
+    """Launch K1 on contiguous, 16-byte aligned int32 CUDA limbs: a [n, 16]
+    and b [n, 16], or either one a single [16] (or [1, 16]) element
+    broadcast to all n."""
+    _check_operand(a, "mont_mul a", align=16)
+    _check_operand(b, "mont_mul b", align=16)
     if a.device != b.device:
         raise ValueError("mont_mul: operands on different devices")
     if a.shape[-1] != W or b.shape[-1] != W:
@@ -334,8 +340,10 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
 
     def operand(x):
         if x.numel() == W:  # a broadcast constant: stride 0 in the kernel
-            return x.reshape(W).contiguous()
-        return x.expand(shape).contiguous().reshape(n, W)
+            x = x.reshape(W).contiguous()
+        else:
+            x = x.expand(shape).contiguous().reshape(n, W)
+        return x if x.data_ptr() % 16 == 0 else x.clone()
 
     return mont_mul_cuda(operand(a), operand(b), field).reshape(shape)
 

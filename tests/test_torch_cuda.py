@@ -42,6 +42,53 @@ def _limbs(rng, n, field):
     return limbs.astype(np.int32)
 
 
+def _edge_limbs(rng, n, field):
+    """_limbs with the edge values 0, 1 (Montgomery one) and p-1 in its
+    first rows, so that a pair of them meets each edge value with each."""
+    limbs = _limbs(rng, n, field).astype(np.int64)
+    p_minus_1 = np.asarray(field.p_limbs, dtype=np.int64)
+    p_minus_1[0] -= 1
+    edges = [np.zeros(16, np.int64), np.asarray(field.mont_one, np.int64),
+             p_minus_1]
+    for i in range(min(n, 9)):
+        limbs[i] = edges[i % 3] if i < 3 else edges[i // 3 - 1]
+    return limbs.astype(np.int32)
+
+
+def _check_mont_mul_ragged(dev, field):
+    """K1 at ragged n (a partial tile, a few tiles and a ragged tail, a
+    persistent grid that strides), with the broadcast constant on either
+    side and the edge values 0, 1 and p-1; an operand that is not 16-byte
+    aligned is refused by the kernel's wrapper and copied by the
+    dispatcher."""
+    rng = np.random.default_rng(5)
+    for n in (1, 7, 257, (1 << 20) - 3):
+        a = torch.as_tensor(_edge_limbs(rng, n, field), device=dev)
+        b = torch.as_tensor(_edge_limbs(rng, n, field), device=dev)
+        if n >= 9:  # rows 3..8 pair every edge value with every other
+            b[3:9] = b[[0, 1, 2, 0, 1, 2]]
+        assert torch.equal(field_cuda.mont_mul_cuda(a, b, field.name),
+                           field_cuda.mont_mul_plain(a, b, field.name)), n
+        for row in range(min(n, 3)):
+            const = b[row]
+            want = field_cuda.mont_mul_plain(a, const, field.name)
+            assert torch.equal(field_cuda.mont_mul_cuda(a, const, field.name),
+                               want), (n, row)
+            assert torch.equal(field_cuda.mont_mul_cuda(const, a, field.name),
+                               want), (n, row)
+    n = 300
+    buf = torch.zeros(32 * n + 8, dtype=torch.int32, device=dev)
+    odd = buf[1:1 + 16 * n].view(n, 16)                # 4 B in: not aligned
+    skew = buf[16 * n + 4:32 * n + 4].view(n, 16)      # 16 B in: aligned
+    odd.copy_(torch.as_tensor(_limbs(rng, n, field), device=dev))
+    skew.copy_(torch.as_tensor(_limbs(rng, n, field), device=dev))
+    assert skew.data_ptr() % 16 == 0 and odd.data_ptr() % 16 == 4
+    with pytest.raises(ValueError):
+        field_cuda.mont_mul_cuda(odd, skew, field.name)
+    assert torch.equal(field_cuda.mont_mul(odd, skew, field.name),
+                       field_cuda.mont_mul_plain(odd, skew, field.name))
+
+
 def _check_mont_mul_kernels(dev, field):
     """K1 (element-major) and K2 (limb-major) against their plain versions."""
     rng = np.random.default_rng(1)
@@ -76,7 +123,8 @@ def _check_mont_mul_kernels(dev, field):
 
 
 def _check_padd_kernel(dev):
-    """K3 against its plain version, and the unfused path against K3."""
+    """K3 against its plain version (ragged n, P+Q, P+P, P+identity and
+    P+(-P)), and the unfused path against K3."""
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point
 
@@ -84,13 +132,25 @@ def _check_padd_kernel(dev):
     pool = tcurve.from_host_points(
         pts + [p.neg() for p in pts] + [Point.identity()], dev)
     rng = np.random.default_rng(2)
-    idx = torch.as_tensor(rng.integers(0, 129, size=(2, 3 * 1000)), device=dev)
-    p = pool[..., idx[0]].reshape(4, 16, 3, 1000).permute(2, 0, 1, 3).contiguous()
-    q = pool[..., idx[1]].reshape(4, 16, 3, 1000).permute(2, 0, 1, 3).contiguous()
+
+    def batch(i, k, n):
+        return pool[..., i].reshape(4, 16, k, n).permute(2, 0, 1, 3).contiguous()
+
     before = field_cuda.launch_counts["padd"]
-    assert torch.equal(field_cuda.padd_cuda(p, q), field_cuda.padd_plain(p, q))
-    assert torch.equal(field_cuda.padd_cuda(p, p), field_cuda.padd_plain(p, p))
-    assert field_cuda.launch_counts["padd"] == before + 2
+    for k, n in ((3, 1000), (3, 1), (3, 129)):
+        i = rng.integers(0, 64, size=k * n)
+        j = rng.integers(0, 129, size=k * n)
+        kind = np.arange(k * n) % 4
+        j = np.where(kind == 1, i, j)        # P + P
+        j = np.where(kind == 2, 128, j)      # P + identity
+        j = np.where(kind == 3, i + 64, j)   # P + (-P)
+        p = batch(torch.as_tensor(i, device=dev), k, n)
+        q = batch(torch.as_tensor(j, device=dev), k, n)
+        assert torch.equal(field_cuda.padd_cuda(p, q),
+                           field_cuda.padd_plain(p, q)), (k, n)
+        assert torch.equal(field_cuda.padd_cuda(p, p),
+                           field_cuda.padd_plain(p, p)), (k, n)
+    assert field_cuda.launch_counts["padd"] == before + 6
 
     # the unfused curve path (K2) against the fused add (K3): identical
     # limbs for padd, identical compressed bytes for pdbl, and each path
@@ -156,5 +216,6 @@ def test_kernels_and_golden_proof_on_the_card(dev):
     ground rules)."""
     for field in (TFr, TFp):
         _check_mont_mul_kernels(dev, field)
+        _check_mont_mul_ragged(dev, field)
     _check_padd_kernel(dev)
     _check_golden_and_4d(dev)

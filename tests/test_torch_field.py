@@ -226,6 +226,9 @@ def test_dispatch_uses_plain_version_on_cpu():
 # ---------------------------------------------------------------------------
 
 _SHIM = r"""
+#include <algorithm>
+#include <cstring>
+#include <vector>
 #include "field256.cuh"
 extern "C" void h_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
                            int64_t n, int field) {
@@ -236,6 +239,42 @@ extern "C" void h_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
     f256::load16(y, b + 16 * i, 1);
     f256::mont_mul(z, x, y, m);
     f256::store16(out + 16 * i, z, 1);
+  }
+}
+extern "C" int h_tile_slot(int e, int c) { return f256::tile_slot(e, c); }
+// K1's staging as the kernel runs it, one tile of `tile` elements at a time:
+// 16-byte chunks in through tile_slot, each element out of its slots, the
+// product back over its a slots, the chunks out through tile_slot.  b_const:
+// b is one element.
+extern "C" void h_mont_mul_tiled(const int32_t* a, const int32_t* b,
+                                 int32_t* out, int64_t n, int b_const,
+                                 int field, int tile) {
+  const f256::Modulus m = field == 0 ? f256::fr_modulus() : f256::fp_modulus();
+  std::vector<int32_t> sa(64 * tile), sb(64 * tile);
+  for (int64_t first = 0; first < n; first += tile) {
+    const int elems = (int)std::min<int64_t>(tile, n - first);
+    for (int g = 0; g < 4 * elems; ++g) {
+      const int slot = f256::tile_slot(g / 4, g % 4);
+      std::memcpy(&sa[4 * slot], a + 4 * (4 * first + g), 16);
+      if (!b_const) std::memcpy(&sb[4 * slot], b + 4 * (4 * first + g), 16);
+    }
+    for (int e = 0; e < elems; ++e) {
+      int32_t xa[16], xb[16], z[16];
+      for (int c = 0; c < 4; ++c) {
+        const int slot = f256::tile_slot(e, c);
+        std::memcpy(xa + 4 * c, &sa[4 * slot], 16);
+        std::memcpy(xb + 4 * c, b_const ? b + 4 * c : &sb[4 * slot], 16);
+      }
+      uint32_t x[8], y[8], w[8];
+      f256::load16(x, xa, 1);
+      f256::load16(y, xb, 1);
+      f256::mont_mul(w, x, y, m);
+      f256::store16(z, w, 1);
+      for (int c = 0; c < 4; ++c)
+        std::memcpy(&sa[4 * f256::tile_slot(e, c)], z + 4 * c, 16);
+    }
+    for (int g = 0; g < 4 * elems; ++g)
+      std::memcpy(out + 4 * (4 * first + g), &sa[4 * f256::tile_slot(g / 4, g % 4)], 16);
   }
 }
 extern "C" void h_padd(const int32_t* p, const int32_t* q, int32_t* out,
@@ -266,11 +305,18 @@ def header_lib(tmp_path_factory):
     vp = ctypes.c_void_p
     lib.h_mont_mul.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int]
     lib.h_padd.argtypes = [vp, vp, vp, ctypes.c_int64]
+    lib.h_tile_slot.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.h_mont_mul_tiled.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int]
     return lib
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
 def test_cuda_header_mont_mul_matches_plain(header_lib, name):
+    """The portable product, and K1's shared-memory staging through
+    tile_slot: a bijection of each tile's chunks, free of bank conflicts,
+    and the same limbs out as the plain version at a ragged n, with b whole
+    or one broadcast element."""
     tf = FIELDS[name]
     n = 512
     ta = tf.encode_ints(_ints(tf, n, 31), "cpu").contiguous()
@@ -280,8 +326,32 @@ def test_cuda_header_mont_mul_matches_plain(header_lib, name):
                           field_cuda.FIELD_IDS[name])
     assert torch.equal(out, field_cuda.mont_mul_plain(ta, tb, name))
 
+    slot = header_lib.h_tile_slot
+    for tile in (1, 7, 128, 256):
+        slots = sorted(slot(e, c) for e in range(tile) for c in range(4))
+        assert slots == list(range(4 * tile))
+    # 16-byte accesses are served 8 threads at a time over 8 chunk-wide
+    # bank groups: per-element reads (8 elements, one chunk each) and the
+    # copy-in (8 neighbouring chunks) each hit 8 distinct groups
+    for e0 in range(0, 128, 8):
+        for c in range(4):
+            assert len({slot(e, c) % 8 for e in range(e0, e0 + 8)}) == 8
+    for g0 in range(0, 512, 8):
+        assert len({slot(g // 4, g % 4) % 8 for g in range(g0, g0 + 8)}) == 8
+
+    for b_const in (0, 1):
+        m = 300  # two whole tiles of 128 and a ragged one
+        b = tb[5:6] if b_const else tb[:m]
+        out = torch.empty_like(ta[:m])
+        header_lib.h_mont_mul_tiled(ta.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    m, b_const, field_cuda.FIELD_IDS[name], 128)
+        assert torch.equal(out, field_cuda.mont_mul_plain(ta[:m], b, name))
+
 
 def test_cuda_header_padd_matches_plain(header_lib):
+    """K3's formula as the kernel splits it over a pair of lanes
+    (padd_pair_first/second, with the small-constant product), run lane by
+    lane through padd_point, against the plain version and the host."""
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point
 
