@@ -22,8 +22,12 @@ Phases, in order; each prints one line and any failure exits non-zero:
      Pippenger, and profile one more prove for the card's busy share;
   6. each kernel held against its plain version at the main path's own
      dominant shape;
-  7. K2 (limb-major Montgomery multiply) against its plain version, Fr and
-     Fp, K=4 stacked operands of n = 2^20 and a broadcast [16, 1] constant;
+  7. K2 (limb-major Montgomery multiply) against its plain version and the
+     host oracle, Fr and Fp, K=4 stacked operands of n = 2^20 and a
+     broadcast [16, 1] constant; then at n = 1, K = 1 and ragged n (one
+     column or a pair per thread) with the constant on either side and the
+     edge values 0, 1 and p-1; and K2's ptxas registers and spills (a
+     spill fails the run);
   8. the bench CLI's main path on the unfused curve configuration
      (LASSO_TPU_PALLAS_PADD=0): `lasso_tpu_torch.cli` jolt-demo, AND, C=8,
      M=2^16, s=2^16, with launch counts (K2 > 0, K3 = 0) and its spans; then
@@ -32,9 +36,12 @@ Phases, in order; each prints one line and any failure exits non-zero:
      the profiler for the card's busy share and K1's and K3's launches,
      device time and dominant shapes; K1 and K3 held against their plain
      versions at those shapes;
-  9. K2 held against its plain version at the shape that carried the most
-     elements in the unfused jolt-demo prove; then the `kernels` JSON line,
-     the card line, and the final status line.
+  9. K2 held against its plain version and the host oracle at the shape
+     that carried the most elements in the unfused jolt-demo prove, timed
+     there through its wrapper and through TFp.mul_lm (`dispatch_loop_ms`),
+     and at its latency floor, Fp [1, 16, 32] (one warp, one product per
+     thread); then the `kernels` JSON line, the card line, and the final
+     status line.
 
 Every kernel time is given twice: `device_ms`, the kernel's own device time
 per launch (torch.profiler's self device time over a loop of launches,
@@ -142,7 +149,7 @@ def main() -> int:
     from lasso_tpu_torch import cli
     from lasso_tpu_torch.benches import bench
     from lasso_tpu_torch.benches.kernel_sweep import (device_ms, device_us,
-                                                      host_loop_ms)
+                                                      host_loop_ms, lm_plain)
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point, msm_host
     from lasso_tpu_torch.field.tfield import TFp, TFr, unpack_ints
@@ -531,31 +538,50 @@ def main() -> int:
           flush=True)
 
     # -- 7. K2 against its plain version ---------------------------------------
-    def k2_plain(a, b, field):
-        """K2's plain version, a batch slice at a time when the operands
-        are large (its int64 product columns take ~4 KB per element)."""
-        k, _, n = (a if a.dim() == 3 else b).shape
-        per = max(1, (1 << 20) // n)
-
-        def part(x, lo):  # a [16, 1] constant goes whole to every slice
-            return x if x.dim() == 2 else x[lo:lo + per]
-        return torch.cat([field_cuda.mont_mul_lm_plain(part(a, lo), part(b, lo),
-                                                       field)
-                          for lo in range(0, k, per)])
-
-    def limb_major(field, k, n):
-        x = torch.as_tensor(random_limbs(rng, k * n, field), device=dev)
-        return x.reshape(k, n, W).transpose(1, 2).contiguous()
+    def limb_major(field, k, n, elems=None):
+        """[k, 16, n] limbs: `elems` ([k*n, 16] element-major) or random
+        canonical ones."""
+        if elems is None:
+            elems = torch.as_tensor(random_limbs(rng, k * n, field), device=dev)
+        return elems.reshape(k, n, W).transpose(1, 2).contiguous()
 
     def k2_check(a, b, field, what):
         got = field_cuda.mont_mul_lm_cuda(a, b, field)
-        want = k2_plain(a, b, field)
+        want = lm_plain(field_cuda, a, b, field)
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err:
             fail(f"K2 {field} {what}: kernel differs from plain by {err}")
         return err
 
+    def k2_oracle(a, b, field, what):
+        """K2 against the host's a*b*2^-256 mod p on batch 0's first 32
+        columns (a [16, 1] constant stands for every column)."""
+        got = field_cuda.mont_mul_lm_cuda(a, b, field.name)
+
+        def cols(x):
+            x = x[0] if x.dim() == 3 else x
+            return unpack_ints(x[:, :32].T)
+        xa, xb, xg = cols(a), cols(b), cols(got)
+        xa, xb = (x * len(xg) if len(x) == 1 else x for x in (xa, xb))
+        p, r_inv = field.host.p, field.host.r_inv
+        if any(g != x * y * r_inv % p for x, y, g in zip(xa, xb, xg)):
+            fail(f"K2 {field.name} {what}: kernel differs from the host oracle")
+
+    def k2_ptxas():
+        """K2's registers per instantiation and its spilled bytes."""
+        regs_used, spilled = [], 0
+        for ln in regs["mont_mul_lm"]:
+            words = ln.replace(",", "").split()
+            if "registers" in words:
+                regs_used.append(int(words[words.index("registers") - 1]))
+            spilled += sum(int(words[i - 2]) for i, w in enumerate(words)
+                           if w == "spill")  # "<N> bytes spill stores"
+        return regs_used, spilled
+
+    k2_regs, k2_spilled = k2_ptxas()
+    if k2_spilled:
+        fail(f"K2 spills {k2_spilled} bytes: {regs['mont_mul_lm']}")
     k2 = {"max_abs_err": 0}
     k2_n, k2_k = 1 << 20, 4
     for field in (TFr, TFp):
@@ -564,12 +590,8 @@ def main() -> int:
         const = b[1, :, 2:3].contiguous()  # one [16, 1] element
         k2["max_abs_err"] = max(k2_check(a, b, field.name, "stacked"),
                                 k2_check(a, const, field.name, "broadcast"))
-        # the host oracle on a few columns
-        p, r_inv = field.host.p, field.host.r_inv
-        got = field_cuda.mont_mul_lm_cuda(a, b, field.name)
-        cols = [unpack_ints(x[0, :, :32].T) for x in (a, b, got)]
-        if any(g != x * y * r_inv % p for x, y, g in zip(*cols)):
-            fail(f"K2 {field.name}: kernel differs from the host oracle")
+        k2_oracle(a, b, field, "stacked")
+        k2_oracle(a, const, field, "broadcast")
         elems = k2_k * k2_n
         texts = []
         for y, y_shape, y_bytes in ((b, [k2_k, W, k2_n], 64 * elems),
@@ -580,12 +602,32 @@ def main() -> int:
                 "mont_mul_lm", [[k2_k, W, k2_n], y_shape, field.name],
                 device_ms(call, 50, "mont_mul_lm_kernel"),
                 host_loop_ms(call, 20),
-                host_loop_ms(lambda: k2_plain(a, y, field.name), 2),
+                host_loop_ms(lambda: lm_plain(field_cuda, a, y, field.name), 2),
                 2 * 64 * elems + y_bytes, K1_OPS * elems))
         print(f"phase 7 K2 {field.name}: shape=[{k2_k},16,{k2_n}] equal=True "
-              f"max_abs_err=0 {texts[0]}; broadcast [16,1] constant: "
-              f"equal=True {texts[1]}", flush=True)
-        del a, b, const, got
+              f"host_oracle=equal max_abs_err=0 {texts[0]}; broadcast [16,1] "
+              f"constant: equal=True {texts[1]}", flush=True)
+        del a, b, const
+
+        # n = 1, K = 1, ragged n (one column or a pair per thread), the
+        # constant on either side, 0 / 1 / p-1 against each other
+        for k, n in ((1, 1), (4, 1), (1, 33), (3, 1001), (3, (1 << 16) + 2),
+                     (2, (1 << 16) + 1)):
+            ea = torch.as_tensor(random_limbs(rng, k * n, field), device=dev)
+            eb = torch.as_tensor(random_limbs(rng, k * n, field), device=dev)
+            if k * n >= 9:
+                ea[3:9] = ea[[0, 1, 2, 0, 1, 2]]
+                eb[3:9] = eb[[1, 2, 0, 2, 0, 1]]
+            a, b = limb_major(field, k, n, ea), limb_major(field, k, n, eb)
+            consts = [eb[r].reshape(W, 1) for r in range(min(k * n, 3))]
+            for x, y in [(a, b)] + [(a, c) for c in consts] + [
+                    (c, a) for c in consts]:
+                k2_check(x, y, field.name, f"at [{k},16,{n}] x {list(y.shape)}")
+        print(f"phase 7 K2 {field.name}: [1,16,1] [4,16,1] [1,16,33] "
+              f"[3,16,1001] [3,16,2^16+2] [2,16,2^16+1] with [16,1] constants "
+              f"on either side and 0/1/p-1 pairs: equal=True", flush=True)
+    print(f"phase 7 K2 ptxas: registers={k2_regs} spill_bytes={k2_spilled} "
+          f"({len(k2_regs)} instantiations)", flush=True)
     torch.cuda.empty_cache()
 
     # -- 8. the bench CLI on the unfused curve path (jolt-demo) -----------------
@@ -743,23 +785,39 @@ def main() -> int:
         k2_shapes.items(),
         key=lambda kv: kv[1] * max(np.prod(kv[0][0]), np.prod(kv[0][1])))
     flm = TFr if lm_f == "Fr" else TFp
-    out_shape = lm_a if len(lm_a) == 3 else lm_b
-    a = (limb_major(flm, lm_a[0], lm_a[2]) if len(lm_a) == 3
-         else limb_major(flm, 1, 1)[0])
-    b = (limb_major(flm, lm_b[0], lm_b[2]) if len(lm_b) == 3
-         else limb_major(flm, 1, 1)[0])
-    err2 = k2_check(a, b, lm_f, f"at {lm_a} x {lm_b}")
-    n_lm = int(np.prod(out_shape)) // W
-    call = lambda: field_cuda.mont_mul_lm_cuda(a, b, lm_f)  # noqa: E731
-    k2_times = record("mont_mul_lm", [list(lm_a), list(lm_b), lm_f],
+
+    def k2_at(a_shape, b_shape, field, dispatch=False):
+        """K2 at [K, 16, n] or [16, 1] operand shapes: held against its
+        plain version and the host oracle, then timed (`dispatch`: also a
+        loop through TField.mul_lm, the unfused curve path's call)."""
+        a, b = (limb_major(field, s[0], s[2]) if len(s) == 3
+                else limb_major(field, 1, 1)[0] for s in (a_shape, b_shape))
+        err = k2_check(a, b, field.name, f"at {a_shape} x {b_shape}")
+        k2_oracle(a, b, field, f"at {a_shape} x {b_shape}")
+        out_shape = a_shape if len(a_shape) == 3 else b_shape
+        n_lm = int(np.prod(out_shape)) // W
+        call = lambda: field_cuda.mont_mul_lm_cuda(a, b, field.name)  # noqa: E731
+        text = record("mont_mul_lm", [list(a_shape), list(b_shape), field.name],
                       device_ms(call, 100, "mont_mul_lm_kernel"),
                       host_loop_ms(call, 50),
-                      host_loop_ms(lambda: k2_plain(a, b, lm_f), 5),
+                      host_loop_ms(lambda: lm_plain(field_cuda, a, b,
+                                                    field.name), 5),
                       (a.numel() + b.numel() + n_lm * W) * 4, K1_OPS * n_lm)
+        if dispatch:
+            loop = host_loop_ms(lambda: field.mul_lm(a, b), 50)
+            timed["mont_mul_lm"][-1]["dispatch_loop_ms"] = loop
+            text += f" dispatch_loop_ms={loop:.4f}"
+        return err, text
+
+    err2, k2_times = k2_at(lm_a, lm_b, flm, dispatch=True)
     k2_main = timed["mont_mul_lm"][-1]
+    _, floor_times = k2_at((1, W, 32), (1, W, 32), TFp)
     print(f"phase 9 main-path shape: K2 {lm_f} {list(lm_a)}x{list(lm_b)} "
-          f"calls={lm_calls} equal=True {k2_times}; "
+          f"calls={lm_calls} equal=True host_oracle=equal {k2_times}; "
           f"distinct_shapes K2={len(k2_shapes)}", flush=True)
+    print(f"phase 9 K2 latency floor: Fp [1,16,32]x[1,16,32] (one warp, one "
+          f"product per thread) equal=True host_oracle=equal {floor_times}; "
+          f"ptxas registers={k2_regs} spill_bytes={k2_spilled}", flush=True)
 
     def kernel_row(name, source, replaces, launches, err, main, by_path):
         """The kernels line's entry: the contract's keys at the main path's

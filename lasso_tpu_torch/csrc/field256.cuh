@@ -14,14 +14,17 @@
 // Two implementations of the same arithmetic:
 //   - f256::mont_mul, add_mod, sub_mod: portable __host__ __device__ C++ in
 //     uint64_t, with no CUDA intrinsics, so a host compiler builds them too
-//     (the CPU tests hold them against the plain versions).  K2 uses them.
+//     (the CPU tests hold them, and the kernels' addressing, K3's lane
+//     split and K2's grid below, against the plain versions).
 //   - f256::dev: device-only, on PTX carry chains (mad.lo.cc / madc.hi.cc /
-//     addc.cc), seen only by nvcc.  K1 uses dev::mont_mul; K3 uses
-//     dev::P25519Ops, whose products reduce with p = 2^255 - 19's form.
+//     addc.cc), seen only by nvcc.  K1 and K2 (Fr) use dev::mont_mul; K2
+//     (Fp) uses dev::mont_mul_p25519 and K3 dev::P25519Ops, whose products
+//     reduce with p = 2^255 - 19's form.
 // Both give the same canonical words for the same inputs.
 
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -307,9 +310,138 @@ F256_HD void store16(int32_t* dst, const uint32_t w[N], int64_t stride) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2's limb-major work, one thread's share (the kernel is in mont_mul_lm.cu).
+//
+// Limb i of column c of row k of a contiguous [K, 16, n] tensor sits at
+// (k*16 + i)*n + c: threads on neighbouring columns read neighbouring
+// addresses.  A thread owns kCols neighbouring columns of one row; with
+// kCols = 2 it reads and writes each limb of both as one 8-byte access on
+// the card (n even and 8-byte aligned operands, so a pair never straddles
+// two rows).
+// ---------------------------------------------------------------------------
+
+template <int kCols>
+F256_HD void load_cols(int32_t v[kCols], const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  if constexpr (kCols == 2) {
+    const int2 x = __ldg(reinterpret_cast<const int2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    return;
+  }
+  if constexpr (kCols == 1) {
+    v[0] = __ldg(p);
+    return;
+  }
+#endif
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) v[c] = p[c];
+}
+
+template <int kCols>
+F256_HD void store_cols(int32_t* p, const int32_t v[kCols]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (kCols == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+    return;
+  }
+#endif
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) p[c] = v[c];
+}
+
+// kCols neighbouring columns of 16 limbs at limb stride n -> kCols x 8 words.
+template <int kCols>
+F256_HD void load16_cols(uint32_t w[kCols][N], const int32_t* src,
+                         uint32_t n) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int32_t lo[kCols], hi[kCols];
+    load_cols<kCols>(lo, src + (size_t)(2 * i) * n);
+    load_cols<kCols>(hi, src + (size_t)(2 * i + 1) * n);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      w[c][i] = ((uint32_t)lo[c] & 0xffffu) | ((uint32_t)hi[c] << 16);
+    }
+  }
+}
+
+template <int kCols>
+F256_HD void store16_cols(int32_t* dst, const uint32_t w[kCols][N],
+                          uint32_t n) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int32_t lo[kCols], hi[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      lo[c] = (int32_t)(w[c][i] & 0xffffu);
+      hi[c] = (int32_t)(w[c][i] >> 16);
+    }
+    store_cols<kCols>(dst + (size_t)(2 * i) * n, lo);
+    store_cols<kCols>(dst + (size_t)(2 * i + 1) * n, hi);
+  }
+}
+
+// The products of flat columns first .. first + kCols - 1 of [K, 16, n]
+// operands (flat column = k*n + c): out = a*b*2^-256 mod p through
+// Mul::mul.  kBConst: b is one [16, 1] element, read into registers once.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Mul, bool kBConst, int kCols>
+F256_HD void mont_mul_lm_columns(const int32_t* a, const int32_t* b,
+                                 int32_t* out, uint32_t first, uint32_t n) {
+  const uint32_t k = first / n;
+  const size_t at = (size_t)k * 16 * n + (first - k * n);
+  uint32_t x[kCols][N], y[kCols][N], z[kCols][N];
+  load16_cols<kCols>(x, a + at, n);
+  if (kBConst) {
+    load16_cols<1>(y, b, 1);
+#pragma unroll
+    for (int c = 1; c < kCols; ++c) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) y[c][i] = y[0][i];
+    }
+  } else {
+    load16_cols<kCols>(y, b + at, n);
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) Mul::mul(z[c], x[c], y[c]);
+  store16_cols<kCols>(out + at, z, n);
+}
+
+// The portable product as a Mul policy (field 0 = Fr, 1 = Fp).
+template <int kField>
+struct PortableMul {
+  F256_HD static void mul(uint32_t o[N], const uint32_t a[N],
+                          const uint32_t b[N]) {
+    mont_mul(o, a, b, kField == 0 ? fr_modulus() : fp_modulus());
+  }
+};
+
+// K2's grid for `total` products on rows of n columns: blocks of
+// `threads`, one product per thread, or a pair of neighbouring columns per
+// thread (max_cols = 2) where n is even, the operands are 8-byte aligned
+// (`pairs_ok`) and the launch still gives each of the `sms` SMs four blocks
+// of pairs.
+struct LmLaunch {
+  int cols;
+  uint32_t groups, blocks;  // groups = products / cols, one per thread
+};
+
+F256_HD LmLaunch lm_launch(uint32_t total, uint32_t n, bool pairs_ok, int sms,
+                           int threads, int max_cols) {
+  const bool pairs = max_cols == 2 && pairs_ok && n % 2 == 0 &&
+                     total / 2 >= 4u * (uint32_t)sms * (uint32_t)threads;
+  const int cols = pairs ? 2 : 1;
+  const uint32_t groups = total / cols;
+  return LmLaunch{cols, groups, (groups + threads - 1) / threads};
+}
+
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
-// Device-only arithmetic on PTX carry chains (K1 and K3).
+// Device-only arithmetic on PTX carry chains (K1, K2 and K3).
 //
 // The portable mont_mul above writes each CIOS step as a 64-bit multiply
 // plus 64-bit adds and a shift; nvcc turns that into a wide multiply and

@@ -209,8 +209,8 @@ def _lib(name: str) -> ctypes.CDLL:
                                        ctypes.c_int, vp]
         lib.lasso_mont_mul.restype = ctypes.c_int
     elif name == "mont_mul_lm":
-        lib.lasso_mont_mul_lm.argtypes = [vp, i64, i64, i64, vp, i64, i64,
-                                          i64, vp, i64, i64, ctypes.c_int, vp]
+        lib.lasso_mont_mul_lm.argtypes = [vp, vp, vp, i64, i64, ctypes.c_int,
+                                          ctypes.c_int, vp]
         lib.lasso_mont_mul_lm.restype = ctypes.c_int
     else:
         lib.lasso_padd.argtypes = [vp, vp, vp, i64, i64, vp]
@@ -226,7 +226,7 @@ def _check_launch(rc: int, name: str) -> None:
 
 
 def _check_operand(x: torch.Tensor, what: str, align: int = 4) -> None:
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
         raise TypeError(f"{what}: expected int32 limbs, got {x.dtype}")
@@ -266,33 +266,42 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     return out
 
 
+def _raw_stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on x's device, read anew on
+    every call, without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+_K2 = None  # K2's C entry, bound on first use
+_K2_CONST = (W, 1)
+
+
 def mont_mul_lm_cuda(a: torch.Tensor, b: torch.Tensor,
                      field: str) -> torch.Tensor:
     """Launch K2 on contiguous int32 CUDA limbs: a [K, 16, n] and b
     [K, 16, n], or either one a single [16, 1] element broadcast to every
     (k, column).  Returns [K, 16, n]."""
+    global _K2
     _check_operand(a, "mont_mul_lm a")
     _check_operand(b, "mont_mul_lm b")
-    if a.device != b.device:
+    if a.get_device() != b.get_device():
         raise ValueError("mont_mul_lm: operands on different devices")
-    full = [x for x in (a, b) if x.shape != (W, 1)] or [a]
-    shape = full[0].shape
-    if len(shape) != 3 or shape[1] != W or any(x.shape != shape for x in full):
+    consts = int(a.shape == _K2_CONST) + 2 * int(b.shape == _K2_CONST)
+    full = b if consts == 1 else a
+    shape = full.shape
+    if (consts == 3 or len(shape) != 3 or shape[1] != W
+            or (consts == 0 and b.shape != shape)):
         raise ValueError(f"mont_mul_lm: expected [K, {W}, n] operands or a "
                          f"[{W}, 1] constant, got {tuple(a.shape)} and "
                          f"{tuple(b.shape)}")
+    out = torch.empty_like(full)
     k, _, n = shape
-    out = torch.empty((k, W, n), dtype=torch.int32, device=a.device)
     if k * n == 0:
         return out
-
-    def strides(x):  # (k, limb, column); a [16, 1] constant reads stride 0
-        return (0, 1, 0) if x.shape == (W, 1) else (W * n, n, 1)
-
-    rc = _lib("mont_mul_lm").lasso_mont_mul_lm(
-        a.data_ptr(), *strides(a), b.data_ptr(), *strides(b), out.data_ptr(),
-        k, n, FIELD_IDS[field],
-        torch.cuda.current_stream(a.device).cuda_stream)
+    if _K2 is None:
+        _K2 = _lib("mont_mul_lm").lasso_mont_mul_lm
+    rc = _K2(a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n, consts,
+             FIELD_IDS[field], _raw_stream(a))
     _check_launch(rc, "mont_mul_lm")
     launch_counts["mont_mul_lm"] += 1
     return out
@@ -352,9 +361,17 @@ def mont_mul_lm(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     """Montgomery product of broadcastable limb-major [..., 16, n] limbs:
     K2 for CUDA tensors, the plain version for CPU tensors.  Leading axes
     flatten to K, as in the reference's entry; a single [16, 1] element is
-    read with stride 0."""
-    if _on_cpu(a, b):
+    read with stride 0.  Contiguous operands of one shape go to K2 as views,
+    with no copy."""
+    if not (a.is_cuda and b.is_cuda) and _on_cpu(a, b):
         return mont_mul_lm_plain(a, b, field)
+    shape = a.shape
+    if (b.shape == shape and len(shape) >= 3 and shape[-2] == W
+            and a.is_contiguous() and b.is_contiguous()):
+        if len(shape) == 3:
+            return mont_mul_lm_cuda(a, b, field)
+        flat = (-1, W, shape[-1])
+        return mont_mul_lm_cuda(a.view(flat), b.view(flat), field).view(shape)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     k = 1
     for s in shape[:-2]:

@@ -120,6 +120,62 @@ def _check_mont_mul_kernels(dev, field):
     assert torch.equal(field.mul_lm(a[None], b[:1]),
                        field_cuda.mont_mul_lm_plain(a[None], b[:1], field.name))
     assert field_cuda.launch_counts["mont_mul_lm"] == before + 3
+    _check_mont_mul_lm_shapes(dev, field)
+
+
+def _check_mont_mul_lm_shapes(dev, field):
+    """K2 limb for limb against its plain version at the grid's edges: n = 1,
+    K = 1, ragged n that are not a multiple of the block or of the columns
+    per thread, one column or a pair per thread (an operand only 4-byte
+    aligned keeps one), the edge values 0, 1 and p-1 against each other and
+    the [16, 1] constant on either side; then the dispatcher's views of
+    contiguous stacked operands."""
+    rng = np.random.default_rng(6)
+
+    def limb_major(k, n, lo=None):
+        x = torch.as_tensor(_edge_limbs(rng, k * n, field), device=dev)
+        x = x.reshape(k, n, 16).transpose(1, 2)
+        if lo is None:
+            return x.contiguous()
+        lo.copy_(x.contiguous().reshape(-1))
+        return lo.view(k, 16, n)
+
+    for k, n in ((1, 1), (4, 1), (1, 32), (1, 33), (4, 512), (3, 1001),
+                 (1, 4097), (3, (1 << 16) + 2), (2, (1 << 16) + 1)):
+        a, b = limb_major(k, n), limb_major(k, n)
+        if k * n >= 9:  # the edge values of a against every one of b's
+            flat = b.transpose(1, 2).reshape(-1, 16)
+            flat[3:9] = flat[[0, 1, 2, 0, 1, 2]].clone()
+            b = flat.reshape(k, n, 16).transpose(1, 2).contiguous()
+        want = field_cuda.mont_mul_lm_plain(a, b, field.name)
+        assert torch.equal(field_cuda.mont_mul_lm_cuda(a, b, field.name),
+                           want), (k, n)
+        for col in range(min(k * n, 3)):  # 0, 1 and p-1 as the constant
+            const = a[col // n, :, col % n:col % n + 1].contiguous()
+            want = field_cuda.mont_mul_lm_plain(b, const, field.name)
+            assert torch.equal(
+                field_cuda.mont_mul_lm_cuda(b, const, field.name), want), \
+                (k, n, col)
+            assert torch.equal(
+                field_cuda.mont_mul_lm_cuda(const, b, field.name), want), \
+                (k, n, col)
+    # operands 4 bytes past an 8-byte boundary: one column per thread
+    k, n = 3, (1 << 16) + 2
+    buf = torch.zeros(3 * k * 16 * n + 2, dtype=torch.int32, device=dev)
+    a = limb_major(k, n, buf[1:1 + k * 16 * n])
+    b = limb_major(k, n, buf[2 + k * 16 * n:2 + 2 * k * 16 * n])
+    assert a.data_ptr() % 8 == 4 and b.data_ptr() % 8 == 0
+    assert torch.equal(field_cuda.mont_mul_lm_cuda(a, b, field.name),
+                       field_cuda.mont_mul_lm_plain(a, b, field.name))
+    assert torch.equal(field_cuda.mont_mul_lm_cuda(b, a, field.name),
+                       field_cuda.mont_mul_lm_plain(b, a, field.name))
+    # the dispatcher: stacked [4, 2, 16, n] operands go to K2 as views
+    a, b = limb_major(8, 300).view(4, 2, 16, 300), limb_major(8, 300)
+    b = b.view(4, 2, 16, 300)
+    before = field_cuda.launch_counts["mont_mul_lm"]
+    assert torch.equal(field.mul_lm(a, b),
+                       field_cuda.mont_mul_lm_plain(a, b, field.name))
+    assert field_cuda.launch_counts["mont_mul_lm"] == before + 1
 
 
 def _check_padd_kernel(dev):

@@ -12,6 +12,7 @@ the plain versions, so the arithmetic the card runs is checked here too.
 """
 
 import ctypes
+import functools
 import os
 import subprocess
 import sys
@@ -219,6 +220,18 @@ def test_dispatch_uses_plain_version_on_cpu():
     assert torch.equal(out, want.movedim(-1, -2))
     with pytest.raises(ValueError):
         field_cuda.mont_mul_lm_cuda(lm_a.contiguous(), lm_a.contiguous(), "Fp")
+    # contiguous stacked operands of one shape, and a [16, 1] constant on
+    # either side: the plain version, limb for limb, and no launch
+    st_a = lm_a.contiguous().view(2, 2, 16, 16)
+    st_b = torch.flip(st_a, (0,)).contiguous()
+    const = lm_b[0, :, 3:4].contiguous()
+    for x, y in ((st_a, st_b), (st_a, const), (const, st_a)):
+        got = field_cuda.mont_mul_lm(x, y, "Fp")
+        assert torch.equal(got, field_cuda.mont_mul_lm_plain(x, y, "Fp"))
+        assert got.shape == st_a.shape
+    assert field_cuda.launch_counts == before
+    with pytest.raises(ValueError):
+        field_cuda.mont_mul_lm_cuda(st_a[0], const, "Fp")
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +290,45 @@ extern "C" void h_mont_mul_tiled(const int32_t* a, const int32_t* b,
       std::memcpy(out + 4 * (4 * first + g), &sa[4 * f256::tile_slot(g / 4, g % 4)], 16);
   }
 }
+// K2's grid (lm_launch) into shape[3]: cols, groups, blocks.
+extern "C" void h_lm_launch(int64_t total, int64_t n, int pairs_ok, int sms,
+                            int threads, int max_cols, int64_t* shape) {
+  const f256::LmLaunch s = f256::lm_launch(
+      (uint32_t)total, (uint32_t)n, pairs_ok, sms, threads, max_cols);
+  shape[0] = s.cols, shape[1] = s.groups, shape[2] = s.blocks;
+}
+template <int kField, bool kBConst, int kCols>
+void lm_grid(const int32_t* a, const int32_t* b, int32_t* out, uint32_t n,
+             int threads, const f256::LmLaunch& s) {
+  for (uint32_t blk = 0; blk < s.blocks; ++blk)
+    for (int t = 0; t < threads; ++t) {
+      const uint32_t g = blk * threads + t;
+      if (g < s.groups)
+        f256::mont_mul_lm_columns<f256::PortableMul<kField>, kBConst, kCols>(
+            a, b, out, g * kCols, n);
+    }
+}
+template <int kField>
+void lm_field(const int32_t* a, const int32_t* b, int32_t* out, uint32_t n,
+              int b_const, int threads, const f256::LmLaunch& s) {
+  if (s.cols == 2)
+    b_const ? lm_grid<kField, true, 2>(a, b, out, n, threads, s)
+            : lm_grid<kField, false, 2>(a, b, out, n, threads, s);
+  else
+    b_const ? lm_grid<kField, true, 1>(a, b, out, n, threads, s)
+            : lm_grid<kField, false, 1>(a, b, out, n, threads, s);
+}
+// K2 as its kernel runs it: the grid from lm_launch, every thread's columns
+// through mont_mul_lm_columns, with the portable product.  b_const: b is
+// one [16, 1] element.
+extern "C" void h_mont_mul_lm(const int32_t* a, const int32_t* b,
+                              int32_t* out, int64_t k, int64_t n, int b_const,
+                              int field, int sms, int threads, int max_cols) {
+  const f256::LmLaunch s = f256::lm_launch(
+      (uint32_t)(k * n), (uint32_t)n, true, sms, threads, max_cols);
+  field == 0 ? lm_field<0>(a, b, out, (uint32_t)n, b_const, threads, s)
+             : lm_field<1>(a, b, out, (uint32_t)n, b_const, threads, s);
+}
 extern "C" void h_padd(const int32_t* p, const int32_t* q, int32_t* out,
                        int64_t n) {
   const f256::Curve c = f256::curve25519();
@@ -308,15 +360,27 @@ def header_lib(tmp_path_factory):
     lib.h_tile_slot.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.h_mont_mul_tiled.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int]
+    i32, i64 = ctypes.c_int, ctypes.c_int64
+    lib.h_lm_launch.argtypes = [i64, i64, i32, i32, i32, i32, vp]
+    lib.h_mont_mul_lm.argtypes = [vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                                  i32]
     return lib
+
+
+def _lm_launch(lib, total, n, pairs_ok, sms, threads, cols):
+    shape = (ctypes.c_int64 * 3)()
+    lib.h_lm_launch(total, n, pairs_ok, sms, threads, cols, shape)
+    return tuple(shape)
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
 def test_cuda_header_mont_mul_matches_plain(header_lib, name):
-    """The portable product, and K1's shared-memory staging through
-    tile_slot: a bijection of each tile's chunks, free of bank conflicts,
-    and the same limbs out as the plain version at a ragged n, with b whole
-    or one broadcast element."""
+    """The portable product; K1's shared-memory staging through tile_slot:
+    a bijection of each tile's chunks, free of bank conflicts, and the same
+    limbs out as the plain version at a ragged n, with b whole or one
+    broadcast element; K2's grid and limb-major addressing as its kernel
+    runs them, one column or a pair per thread, against the plain version
+    at ragged shapes."""
     tf = FIELDS[name]
     n = 512
     ta = tf.encode_ints(_ints(tf, n, 31), "cpu").contiguous()
@@ -346,6 +410,36 @@ def test_cuda_header_mont_mul_matches_plain(header_lib, name):
         header_lib.h_mont_mul_tiled(ta.data_ptr(), b.data_ptr(), out.data_ptr(),
                                     m, b_const, field_cuda.FIELD_IDS[name], 128)
         assert torch.equal(out, field_cuda.mont_mul_plain(ta[:m], b, name))
+
+    # K2's grid on a 132-SM card with 128-thread blocks: the unfused path's
+    # 2048-product launch takes one product per thread; [4, 16, 2^20] takes
+    # pairs of columns; an odd n or an unaligned operand keeps one column
+    # per thread
+    grid = functools.partial(_lm_launch, header_lib, sms=132, threads=128,
+                             cols=2)
+    assert grid(2048, 512, 1) == (1, 2048, 16)
+    assert grid(32, 32, 1) == (1, 32, 1)
+    assert grid(1 << 22, 1 << 20, 1) == (2, 1 << 21, 1 << 14)
+    assert grid((1 << 22) - 4, (1 << 20) - 1, 1) == (1, (1 << 22) - 4, 1 << 15)
+    assert grid(1 << 22, 1 << 20, 0)[0] == 1
+    assert grid(4 * 132 * 128 * 2, 8, 1)[0] == 2
+    assert grid(4 * 132 * 128 * 2 - 2, 8, 1)[0] == 1
+    # K2 itself, limb-major [k, 16, n]: with 2 "SMs" the pairs start at
+    # 2 * 4 * 2 * 32 = 512 products, so small shapes reach both paths
+    lm = tf.encode_ints(_ints(tf, 2 * 3 * 201, 33), "cpu")
+    for k, n in ((1, 1), (3, 7), (1, 129), (3, 200), (3, 201), (2, 96)):
+        x = lm[:k * n].reshape(k, n, 16).transpose(1, 2).contiguous()
+        y = lm[k * n:2 * k * n].reshape(k, n, 16).transpose(1, 2).contiguous()
+        const = y[k - 1, :, n - 1:n].contiguous()
+        for b, b_const in ((y, 0), (const, 1)):
+            out = torch.empty_like(x)
+            header_lib.h_mont_mul_lm(x.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     k, n, b_const, field_cuda.FIELD_IDS[name],
+                                     2, 32, 2)
+            assert torch.equal(out, field_cuda.mont_mul_lm_plain(x, b, name)), \
+                (k, n, b_const)
+    assert _lm_launch(header_lib, 3 * 200, 200, 1, 2, 32, 2) == (2, 300, 10)
+    assert _lm_launch(header_lib, 3 * 201, 201, 1, 2, 32, 2)[0] == 1
 
 
 def test_cuda_header_padd_matches_plain(header_lib):
