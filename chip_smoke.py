@@ -40,16 +40,34 @@ Phases, in order; each prints one line and any failure exits non-zero:
      that carried the most elements in the unfused jolt-demo prove, timed
      there through its wrapper and through TFp.mul_lm (`dispatch_loop_ms`),
      and at its latency floor, Fp [1, 16, 32] (one warp, one product per
-     thread); then the `kernels` JSON line, the card line, and the final
+     thread);
+ 10. the device-resident transcript: K4 (keccak-f[1600]) against its plain
+     version and the host keccak on random states and the all-zero state,
+     timed beside the host's native keccak; then the flagship and the fused
+     jolt-demo proven on the host transcript route and the device one in
+     turns (host, device, device, host), with their bytes equal on both
+     routes, prove_s and K1/K3/K4 launches per prove, and one profiled
+     host-route prove of each for the card's busy share (the device
+     route's are phase 5's and phase 8's profiled proves).  Every device-route prove
+     here runs its device-transcript rounds (the sumcheck, grand-product
+     and fused opening-proof paths) under
+     torch.cuda.set_sync_debug_mode("error"): a host sync inside them fails
+     the run.  Then the `kernels` JSON line, the card line, and the final
      status line.
+
+Phases 4, 5 and 8 run on the device transcript route, the default on a
+card (LASSO_TPU_DEVICE_TRANSCRIPT unset); phase 10 sets it to 0 for the
+host route.
 
 Every kernel time is given twice: `device_ms`, the kernel's own device time
 per launch (torch.profiler's self device time over a loop of launches,
 divided by their count), and `host_loop_ms`, CUDA events around the same
 loop of wrapper calls, which includes the wrapper's host work and measures
 that instead when the kernel is shorter.  `bound_ms` is the larger of the
-bytes over the memory rate and the 32-bit multiplies over the card's
-integer multiply rate.
+bytes over the memory rate and the 32-bit integer instructions the function
+needs (multiplies for K1-K3, logic operations for K4, which issue at the
+same rate) over the card's rate for them.  K4 also gets `latency_bound_ms`,
+its 24 dependent rounds' shortest instruction chain.
 
 Needs one CUDA card; it imports nothing of JAX or of the JAX package.
 """
@@ -79,6 +97,19 @@ W = 16
 # 2*8*8 + 8 wide products, two instructions each) and per point addition
 K1_OPS = 2 * (2 * 8 * 8 + 8)
 K3_OPS = 11 * K1_OPS
+# one keccak-f[1600] permutation: per round theta 55 (column parities 20,
+# D 5 rotations + 5 XORs, 25 XORs into the state), rho 24 rotations, chi 75
+# (NOT, AND, XOR per lane) and iota 1 64-bit operations (FIPS 202, 3.2),
+# each two 32-bit instructions, over 24 rounds
+K4_OPS = 24 * (55 + 24 + 75 + 1) * 2
+# K4's latency bound: the 24 rounds depend on each other, and each round's
+# longest chain is at least 6 dependent 32-bit instructions (the column
+# parity as two 3-input XORs, the 1-bit rotation of D, the theta XOR, the
+# rho rotation, chi as one 3-input logic op), each issued at least 4 cycles
+# after the one it waits on (the dependent-issue latency of integer ALU
+# instructions since Volta: Jia et al., "Dissecting the NVIDIA Volta GPU
+# Architecture via Microbenchmarking", 2018); no memory latency or launch
+K4_CHAIN_CYCLES = 24 * 6 * 4
 
 
 def fail(msg: str) -> None:
@@ -180,6 +211,9 @@ def main() -> int:
     # every timed shape of every kernel: name -> [{shape, device_ms, ...}]
     timed = collections.defaultdict(list)
 
+    def elapsed() -> str:
+        return f"t={time.perf_counter() - t_start:.0f}s"
+
     def record(name, shape, dev_ms, loop_ms, plain_ms, bytes_moved, ops):
         bnd, by = bound_ms(bytes_moved, ops)
         timed[name].append({"shape": shape, "device_ms": dev_ms,
@@ -195,7 +229,7 @@ def main() -> int:
         log = field_cuda.build_log(name)
         regs[name] = [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln]
-    print(f"phase 1 device+build: card={card!r} kind={kind!r} sms={sms} "
+    print(f"phase 1 [{elapsed()}] device+build: card={card!r} kind={kind!r} sms={sms} "
           f"max_sm_clock_mhz={sm_clock / 1e6:.0f} "
           f"int_mul_peak_per_s={PEAK_OPS_PER_S:.4g} "
           f"build_s={build_s:.2f} ptxas={json.dumps(regs)}", flush=True)
@@ -226,7 +260,7 @@ def main() -> int:
                        host_loop_ms(lambda: field_cuda.mont_mul_plain(
                            a, b, field.name), 3),
                        3 * 64 * n, K1_OPS * n)
-        print(f"phase 2 K1 {field.name}: n={n} equal=True max_abs_err={err} "
+        print(f"phase 2 [{elapsed()}] K1 {field.name}: n={n} equal=True max_abs_err={err} "
               f"{times}", flush=True)
         del a, b, got, want
 
@@ -248,7 +282,7 @@ def main() -> int:
                     fail(f"K1 {field.name} n={n} {list(x.shape)}x"
                          f"{list(y.shape)}: differs from plain by {err}")
             del a, b, got, want, cases, x, y
-        print(f"phase 2 K1 {field.name}: ragged n=(1, 7, 257, 2^20-3) with "
+        print(f"phase 2 [{elapsed()}] K1 {field.name}: ragged n=(1, 7, 257, 2^20-3) with "
               f"[16] constants on either side and 0/1/p-1 pairs: equal=True",
               flush=True)
 
@@ -287,7 +321,7 @@ def main() -> int:
                    host_loop_ms(call, 20),
                    host_loop_ms(lambda: field_cuda.padd_plain(pp, qq), 3),
                    3 * 256 * n3, K3_OPS * n3)
-    print(f"phase 3 K3: n={n3} equal=True max_abs_err={k3_err} "
+    print(f"phase 3 [{elapsed()}] K3: n={n3} equal=True max_abs_err={k3_err} "
           f"compressed_equal=True cases=(P+Q, P+P, P+O, P-P) {times}",
           flush=True)
     # ragged n in K = 3 batches, every case of the addition law
@@ -300,7 +334,7 @@ def main() -> int:
                    - field_cuda.padd_plain(pp, qq).to(torch.int64)).abs().max())
         if err:
             fail(f"K3 at [3, 4, 16, {n}]: differs from plain by {err}")
-    print("phase 3 K3: ragged [3,4,16,1] and [3,4,16,129]: equal=True",
+    print(f"phase 3 [{elapsed()}] K3: ragged [3,4,16,1] and [3,4,16,129]: equal=True",
           flush=True)
     del pp, qq, got, want, pool
 
@@ -340,7 +374,7 @@ def main() -> int:
         if got_e != golden[name]:
             fail(f"golden {name}: {got_e} != {golden[name]}")
         proof.verify(comm, r, gens, ProofTranscript(b"example"))
-    print("phase 4 golden: " + " ".join(f"{n}=equal" for n in goldens)
+    print(f"phase 4 [{elapsed()}] golden: " + " ".join(f"{n}=equal" for n in goldens)
           + " (proof+commitment sha256 and lengths; verify accepted)",
           flush=True)
 
@@ -357,6 +391,7 @@ def main() -> int:
     comm = dense.commit(gens)
     torch.cuda.synchronize()
     commit_s = time.perf_counter() - t0
+    flagship_public = (comm, r, gens)  # phase 10 proves this again
 
     # every l-variate commitment row against the native host Pippenger
     z = dense.combined_l_variate_polys.z
@@ -402,7 +437,8 @@ def main() -> int:
     spans = collections.Counter()
     for root in tracing.span_tree():
         walk_into(spans, root)
-    if prove_counts["mont_mul"] <= 0 or prove_counts["padd"] <= 0:
+    if min(prove_counts["mont_mul"], prove_counts["padd"],
+           prove_counts["keccak"]) <= 0:
         fail(f"flagship prove did not launch every kernel: {prove_counts}")
 
     field_cuda.reset_launch_counts()
@@ -423,7 +459,7 @@ def main() -> int:
         rejected = False
     if not rejected:
         fail("flagship: verify accepted a tampered proof")
-    print(f"phase 5 flagship AND C=1 M=2^16 s=2^14: commit_s={commit_s:.3f} "
+    print(f"phase 5 [{elapsed()}] flagship AND C=1 M=2^16 s=2^14: commit_s={commit_s:.3f} "
           f"first_prove_s={first_s:.3f} prove_s={prove_s:.3f} "
           f"verify_s={verify_s:.3f} prove_peak_mem_gib={peak_gib:.3f} "
           f"verify=accepted tampered=rejected "
@@ -431,7 +467,7 @@ def main() -> int:
           f"proof_sha256={hashlib.sha256(pb).hexdigest()} "
           f"prove_launches={json.dumps(prove_counts)} "
           f"verify_launches={json.dumps(verify_counts)}", flush=True)
-    print("phase 5 prove spans (inclusive ms, summed by name): "
+    print(f"phase 5 [{elapsed()}] prove spans (inclusive ms, summed by name): "
           + json.dumps({k: round(v, 1) for k, v in spans.most_common(16)}),
           flush=True)
 
@@ -441,8 +477,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         SparsePolynomialEvaluationProof.prove(
             dense, r, gens, strategy, ProofTranscript(b"example"),
@@ -469,7 +504,7 @@ def main() -> int:
                 f"k3_ms={ours['padd_kernel']:.2f}")
     else:
         busy = "device time not measured (the profiler saw no device time)"
-    print(f"phase 5 profiled prove: {busy} top_kernels(ms, calls)="
+    print(f"phase 5 [{elapsed()}] profiled prove: {busy} top_kernels(ms, calls)="
           f"{json.dumps(top)}", flush=True)
 
     # -- 6. each kernel at the main path's dominant shape ----------------------
@@ -528,7 +563,7 @@ def main() -> int:
     mm_key, pa_shape = dominant(shapes["mont_mul"]), dominant(shapes["padd"])
     k1_times, k1_main = k1_at(mm_key, "flagship main-path")
     k3_times, k3_main = k3_at(pa_shape, "flagship main-path")
-    print(f"phase 6 main-path shapes: K1 {mm_key[2]} {list(mm_key[0])}x"
+    print(f"phase 6 [{elapsed()}] main-path shapes: K1 {mm_key[2]} {list(mm_key[0])}x"
           f"{list(mm_key[1])} calls={shapes['mont_mul'][mm_key]} equal=True "
           f"{k1_times}; K3 {list(pa_shape)} "
           f"calls={shapes['padd'][pa_shape]} equal=True {k3_times}; "
@@ -604,7 +639,7 @@ def main() -> int:
                 host_loop_ms(call, 20),
                 host_loop_ms(lambda: lm_plain(field_cuda, a, y, field.name), 2),
                 2 * 64 * elems + y_bytes, K1_OPS * elems))
-        print(f"phase 7 K2 {field.name}: shape=[{k2_k},16,{k2_n}] equal=True "
+        print(f"phase 7 [{elapsed()}] K2 {field.name}: shape=[{k2_k},16,{k2_n}] equal=True "
               f"host_oracle=equal max_abs_err=0 {texts[0]}; broadcast [16,1] "
               f"constant: equal=True {texts[1]}", flush=True)
         del a, b, const
@@ -623,10 +658,10 @@ def main() -> int:
             for x, y in [(a, b)] + [(a, c) for c in consts] + [
                     (c, a) for c in consts]:
                 k2_check(x, y, field.name, f"at [{k},16,{n}] x {list(y.shape)}")
-        print(f"phase 7 K2 {field.name}: [1,16,1] [4,16,1] [1,16,33] "
+        print(f"phase 7 [{elapsed()}] K2 {field.name}: [1,16,1] [4,16,1] [1,16,33] "
               f"[3,16,1001] [3,16,2^16+2] [2,16,2^16+1] with [16,1] constants "
               f"on either side and 0/1/p-1 pairs: equal=True", flush=True)
-    print(f"phase 7 K2 ptxas: registers={k2_regs} spill_bytes={k2_spilled} "
+    print(f"phase 7 [{elapsed()}] K2 ptxas: registers={k2_regs} spill_bytes={k2_spilled} "
           f"({len(k2_regs)} instantiations)", flush=True)
     torch.cuda.empty_cache()
 
@@ -656,11 +691,11 @@ def main() -> int:
     jd_spans = collections.Counter()
     for ch in root.children:
         walk_into(jd_spans, ch)
-    print(f"phase 8 jolt-demo CLI (AND C=8 M=2^16 s=2^{jd_log_s}, unfused): "
+    print(f"phase 8 [{elapsed()}] jolt-demo CLI (AND C=8 M=2^16 s=2^{jd_log_s}, unfused): "
           f"rc=0 verify=accepted wall_s={cli_s:.3f} "
           + " ".join(f"{k}_s={v:.3f}" for k, v in cli_times.items())
           + f" launches={json.dumps(cli_counts)}", flush=True)
-    print("phase 8 jolt-demo spans (inclusive ms, summed by name): "
+    print(f"phase 8 [{elapsed()}] jolt-demo spans (inclusive ms, summed by name): "
           + json.dumps({k: round(v, 1) for k, v in jd_spans.most_common(14)}),
           flush=True)
 
@@ -736,7 +771,7 @@ def main() -> int:
                               dominant(jd_shapes["padd"]))
     if jd_busy_ms <= 0:
         fail("the profiler saw no device time in the fused jolt-demo prove")
-    print(f"phase 8 jolt-demo profiled fused prove: device_busy_ms="
+    print(f"phase 8 [{elapsed()}] jolt-demo profiled fused prove: device_busy_ms="
           f"{jd_busy_ms:.1f} profiled_wall_ms={jd_prof_ms:.1f} "
           f"busy_share_profiled={jd_busy_ms / jd_prof_ms:.3f} "
           f"busy_share_of_prove_s="
@@ -761,12 +796,12 @@ def main() -> int:
     if u_counts["mont_mul_lm"] <= 0 or u_counts["padd"] != 0:
         fail(f"jolt-demo unfused prove: wrong kernels {u_counts}")
     for label, run in runs.items():
-        print(f"phase 8 jolt-demo {label}: commit_s={run['commit_s']:.3f} "
+        print(f"phase 8 [{elapsed()}] jolt-demo {label}: commit_s={run['commit_s']:.3f} "
               f"prove_s={run['prove_s']:.3f} verify_s={run['verify_s']:.3f} "
               f"verify=accepted peak_mem_gib={run['peak_gib']:.3f} "
               f"prove_launches={json.dumps(run['prove_launches'])}",
               flush=True)
-    print(f"phase 8 jolt-demo bytes: unfused == fused "
+    print(f"phase 8 [{elapsed()}] jolt-demo bytes: unfused == fused "
           f"proof_len={runs['fused']['entry']['proof_len']} "
           f"proof_sha256={runs['fused']['entry']['proof_sha256']} "
           f"commitment_sha256={runs['fused']['entry']['commitment_sha256']}",
@@ -775,7 +810,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     jd_k1_times, _ = k1_at(jd_mm_key, "fused jolt-demo")
     jd_k3_times, _ = k3_at(jd_pa_shape, "fused jolt-demo")
-    print(f"phase 8 jolt-demo fused main-path shapes: K1 {jd_mm_key[2]} "
+    print(f"phase 8 [{elapsed()}] jolt-demo fused main-path shapes: K1 {jd_mm_key[2]} "
           f"{list(jd_mm_key[0])}x{list(jd_mm_key[1])} equal=True "
           f"{jd_k1_times}; K3 {list(jd_pa_shape)} equal=True {jd_k3_times}",
           flush=True)
@@ -812,12 +847,153 @@ def main() -> int:
     err2, k2_times = k2_at(lm_a, lm_b, flm, dispatch=True)
     k2_main = timed["mont_mul_lm"][-1]
     _, floor_times = k2_at((1, W, 32), (1, W, 32), TFp)
-    print(f"phase 9 main-path shape: K2 {lm_f} {list(lm_a)}x{list(lm_b)} "
+    print(f"phase 9 [{elapsed()}] main-path shape: K2 {lm_f} {list(lm_a)}x{list(lm_b)} "
           f"calls={lm_calls} equal=True host_oracle=equal {k2_times}; "
           f"distinct_shapes K2={len(k2_shapes)}", flush=True)
-    print(f"phase 9 K2 latency floor: Fp [1,16,32]x[1,16,32] (one warp, one "
+    print(f"phase 9 [{elapsed()}] K2 latency floor: Fp [1,16,32]x[1,16,32] (one warp, one "
           f"product per thread) equal=True host_oracle=equal {floor_times}; "
           f"ptxas registers={k2_regs} spill_bytes={k2_spilled}", flush=True)
+
+    # -- 10. the device-resident transcript ----------------------------------
+    from lasso_tpu_torch.subprotocols import (dot_product, grand_product,
+                                              sumcheck)
+    from lasso_tpu_torch.transcript.device_strobe import (keccak_f1600_plain,
+                                                          keccak_f1600_state)
+    from lasso_tpu_torch.utils import keccak as host_keccak
+
+    states = rng.integers(0, 256, size=(1024, 200)).astype(np.int32)
+    states[0] = 0
+    st_dev = torch.as_tensor(states, device=dev)
+    want = keccak_f1600_plain(st_dev)
+    got = field_cuda.keccak_cuda(st_dev.clone())
+    torch.cuda.synchronize()
+    k4_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if k4_err:
+        fail(f"K4: kernel differs from plain by {k4_err}")
+    for i in range(32):
+        ref = bytearray(states[i].astype(np.uint8).tobytes())
+        host_keccak.keccak_f1600(ref)
+        if bytes(got[i].cpu().numpy().astype(np.uint8)) != bytes(ref):
+            fail(f"K4: state {i} differs from the host keccak")
+    # the main path's launch: one [200] state
+    one = st_dev[1].clone()
+    if not torch.equal(keccak_f1600_state(one.clone()),
+                       keccak_f1600_plain(one)):
+        fail("K4: a single [200] state differs from the plain version")
+    # 200 int32 bytes read and written
+    times = record("keccak", [200],
+                   device_ms(lambda: keccak_f1600_state(one), 200,
+                             "keccak_kernel"),
+                   host_loop_ms(lambda: keccak_f1600_state(one), 200),
+                   host_loop_ms(lambda: keccak_f1600_plain(one), 5),
+                   2 * 200 * 4, K4_OPS)
+    k4_main = timed["keccak"][-1]
+    k4_main["latency_bound_ms"] = K4_CHAIN_CYCLES / sm_clock * 1e3
+    state = bytearray(200)
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        host_keccak.keccak_f1600(state)
+    host_us = (time.perf_counter() - t0) / 2000 * 1e6
+    print(f"phase 10 [{elapsed()}] K4: 1024 states (incl. all-zero) and one [200] "
+          f"state equal=True host_keccak=equal max_abs_err={k4_err} {times} "
+          f"latency_bound_ms={k4_main['latency_bound_ms']:.6f} "
+          f"host_native_keccak_us={host_us:.3f}", flush=True)
+    del st_dev, want, got
+
+    # the device-transcript rounds, each under the sync check
+    def sync_checked(fn):
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    checked = [(sumcheck, "_prove_arbitrary_device"),
+               (sumcheck, "_prove_cubic_batched_device"),
+               (grand_product, "_prove_layers_device"),
+               (dot_product, "_device_dppl")]
+    originals = [getattr(mod, name) for mod, name in checked]
+
+    def prove_route(route, prove_fn, profiled=False):
+        """One prove on `route` ("0": host transcript; "1": device, with
+        its rounds under the sync check): (proof, prove_s, launches,
+        profiler text or None)."""
+        os.environ["LASSO_TPU_DEVICE_TRANSCRIPT"] = route
+        if route == "1":
+            for (mod, name), fn in zip(checked, originals):
+                setattr(mod, name, sync_checked(fn))
+        try:
+            field_cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    proof = prove_fn()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                ev = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+                busy = sum(device_us(e) for e in ev) / 1e3
+                k4_ms = sum(device_us(e) for e in ev
+                            if "keccak_kernel" in e.key) / 1e3
+                text = (f"device_busy_ms={busy:.1f} profiled_wall_ms="
+                        f"{wall * 1e3:.1f} busy_share_profiled="
+                        f"{busy / (wall * 1e3):.3f} kernel_launches="
+                        f"{sum(e.count for e in ev)} k4_ms={k4_ms:.2f}")
+                if busy <= 0:
+                    fail("the profiler saw no device time")
+            else:
+                t0 = time.perf_counter()
+                proof = prove_fn()
+                torch.cuda.synchronize()
+                wall, text = time.perf_counter() - t0, None
+        finally:
+            for (mod, name), fn in zip(checked, originals):
+                setattr(mod, name, fn)
+            os.environ.pop("LASSO_TPU_DEVICE_TRANSCRIPT")
+        counts = dict(field_cuda.launch_counts)
+        if (counts["keccak"] > 0) != (route == "1"):
+            fail(f"route {route}: K4 launches {counts['keccak']}")
+        return proof, wall, counts, text
+
+    flagship_prove = lambda: SparsePolynomialEvaluationProof.prove(  # noqa: E731
+        dense, r, gens, strategy, ProofTranscript(b"example"),
+        RandomTape(b"proof"))
+    jd = bench.make_instance("and", 8, 1 << 16, 1 << jd_log_s, dev)
+    jd_comm = jd.dense.commit(jd.gens)
+    route_runs = {}
+    for cfg, prove_fn, public, want_sha in (
+            ("flagship", flagship_prove, flagship_public,
+             hashlib.sha256(pb).hexdigest()),
+            ("jolt_demo_fused", lambda: bench.prove(jd),
+             (jd_comm, jd.r, jd.gens),
+             runs["fused"]["entry"]["proof_sha256"])):
+        for i, route in enumerate(("0", "1", "1", "0")):
+            proof, wall, counts, _ = prove_route(route, prove_fn)
+            got_sha = hashlib.sha256(serialize_proof(proof)).hexdigest()
+            if got_sha != want_sha:
+                fail(f"{cfg} route {route}: proof sha256 {got_sha} != "
+                     f"{want_sha}")
+            if i in (1, 3):  # one proof of each route
+                proof.verify(*public, ProofTranscript(b"example"))
+            route_runs.setdefault(cfg, []).append((route, wall, counts))
+            print(f"phase 10 [{elapsed()}] {cfg} {['host', 'device'][int(route)]} route "
+                  f"(turn {i + 1}): prove_s={wall:.3f} proof_sha256={got_sha}"
+                  f" launches={json.dumps(counts)}", flush=True)
+            del proof
+        # the device route's profiled prove is phase 5's (flagship) and
+        # phase 8's (fused jolt-demo)
+        _, wall, counts, text = prove_route("0", prove_fn, True)
+        print(f"phase 10 [{elapsed()}] {cfg} host route profiled prove: "
+              f"{text} launches={json.dumps(counts)}", flush=True)
+    print(f"phase 10 [{elapsed()}] routes: flagship and jolt-demo bytes equal on both "
+          "routes; the device-transcript rounds ran under "
+          "set_sync_debug_mode('error') with no host sync", flush=True)
+    del jd, jd_comm
+    k4_launches = {f"{cfg}_device_prove": route_runs[cfg][1][2]["keccak"]
+                   for cfg in route_runs}
 
     def kernel_row(name, source, replaces, launches, err, main, by_path):
         """The kernels line's entry: the contract's keys at the main path's
@@ -849,7 +1025,15 @@ def main() -> int:
                    prove_counts["padd"], k3_err, k3_main,
                    {"flagship_prove": prove_counts["padd"],
                     "jolt_demo_fused_prove": jd_counts["padd"]}),
+        kernel_row("keccak (K4)", "lasso_tpu_torch/csrc/keccak.cu",
+                   "lasso_tpu/transcript/device_strobe.py:78",
+                   prove_counts["keccak"], k4_err, k4_main,
+                   {"flagship_prove": prove_counts["keccak"],
+                    "jolt_demo_fused_prove": jd_counts["keccak"],
+                    "jolt_demo_unfused_cli_pass": cli_counts["keccak"],
+                    **k4_launches}),
     ]}
+    kernels["kernels"][-1]["latency_bound_ms"] = k4_main["latency_bound_ms"]
     print(json.dumps(kernels), flush=True)
     print(f"card: {card_line()} total_s={time.perf_counter() - t_start:.1f}",
           flush=True)

@@ -284,7 +284,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     tree = os.path.dirname(os.path.dirname(os.path.abspath(fc.__file__)))
     src = hashlib.sha256()
-    for name in [fc.HEADER] + sorted(fc.SOURCES.values()):
+    # a parent tree from before K4 names its one header HEADER
+    headers = list(getattr(fc, "HEADERS", None) or [fc.HEADER])
+    for name in headers + sorted(fc.SOURCES.values()):
         with open(os.path.join(fc.CSRC, name), "rb") as f:
             src.update(f.read())
     build_s = fc.build()

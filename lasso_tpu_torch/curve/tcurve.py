@@ -200,12 +200,9 @@ def affine_int_limbs_device(pts):
     """[4, W, n] extended Montgomery points -> (xa, ya) canonical 16-bit
     int limbs [n, W] of the affine coordinates (sync-free Fermat Z-inverse).
     """
-    x_m = pts[0].movedim(-1, -2)  # [n, W] Montgomery
-    y_m = pts[1].movedim(-1, -2)
-    z_m = pts[2].movedim(-1, -2)
-    zinv = TFp.inv_device(z_m)
-    xa = TFp.to_int_limbs(TFp.mul(x_m, zinv))  # canonical 16-bit limbs
-    ya = TFp.to_int_limbs(TFp.mul(y_m, zinv))
+    xy_m = pts[:2].movedim(-1, -2)  # [2, n, W] Montgomery
+    zinv = TFp.inv_device(pts[2].movedim(-1, -2))
+    xa, ya = TFp.to_int_limbs(TFp.mul(xy_m, zinv[None]))  # canonical limbs
     return xa, ya
 
 
@@ -214,7 +211,7 @@ def compress_affine_bytes_device(xa, ya) -> torch.Tensor:
     byte-exact with host Point.to_compressed_bytes (ark twisted Edwards:
     canonical-LE y with the 'x is negative' flag in the top bit; 'negative'
     means x >= (p+1)/2, evaluated limb-lexicographically)."""
-    half = torch.tensor(_HALF_P1, dtype=torch.int32, device=xa.device)
+    half = TFp.const(_HALF_P1, xa.device)
     ge = torch.zeros(xa.shape[:-1], dtype=torch.bool, device=xa.device)
     decided = torch.zeros_like(ge)
     for i in range(W - 1, -1, -1):

@@ -73,8 +73,18 @@ def unpack_ints(arr) -> list[int]:
             for i in range(0, len(raw), step)]
 
 
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A copy of a host array as a tensor on `device`.  To a card the copy
+    goes through pinned memory on the current stream, so the host does not
+    wait for it (the device-transcript rounds run without a host sync)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _as_tensor(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
+    return upload(np.asarray(x).astype(np.int32), device)
 
 
 # ---------------------------------------------------------------------------
@@ -169,19 +179,42 @@ def _mont_redc(col, c: "_Consts"):
     """Montgomery reduction of non-negative int64 columns [..., <= 2W+1]
     (value < R*p, each column < 2^40) -> canonical int64 limbs [..., W]."""
     width = col.shape[-1]
-    t = col.to(torch.int64)
-    t = F.pad(t, (0, 2 * W + 1 - width)) if width < 2 * W + 1 else t.clone()
+    # columns first, so each step reads and writes whole rows (fewer and
+    # cheaper tensor ops on small batches)
+    t = F.pad(col.to(torch.int64), (0, 2 * W + 1 - width)).movedim(-1, 0)
+    t = t.contiguous()
+    p = c.p64.reshape((W,) + (1,) * (t.dim() - 1))
+    rows = t.unbind(0)
     for i in range(W):
-        m = (t[..., i] * c.n0inv) & MASK
-        t[..., i: i + W] += m[..., None] * c.p64
+        m = (rows[i] * c.n0inv) & MASK
+        t[i: i + W] += m * p
         # t_i is now a multiple of 2^16: only its carry survives
-        t[..., i + 1] += t[..., i] >> B
-    res = _normalize(t[..., W:], W)  # < 2p < 2^256
+        rows[i + 1].add_(rows[i] >> B)
+    res = _normalize(t[W:].movedim(0, -1), W)  # < 2p < 2^256
     return _cond_sub(res, c.p64)
 
 
+# at most this many products on the CPU go through Python ints
+SMALL_PRODUCTS = 32
+
+
+def _mont_mul_ints(a, b, c: "_Consts"):
+    """a*b*2^-256 mod p over Python ints, product by product."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = [x * y * c.r_inv % c.p
+           for x, y in zip(unpack_ints(a), unpack_ints(b))]
+    raw = b"".join(v.to_bytes(2 * W, "little") for v in out)
+    limbs = np.frombuffer(raw, dtype="<u2").astype(np.int32)
+    return torch.from_numpy(limbs).reshape(a.shape)
+
+
 def mont_mul_limbs(a, b, c: "_Consts"):
-    """Plain Montgomery product a*b*2^-256 mod p of canonical limbs."""
+    """Plain Montgomery product a*b*2^-256 mod p of canonical limbs.  A few
+    products on the CPU take Python ints: each of the limb arithmetic's
+    ~100 tensor ops costs more there than a whole product in ints."""
+    if (a.device.type == "cpu" and a.numel() <= SMALL_PRODUCTS * W
+            and b.numel() <= SMALL_PRODUCTS * W):
+        return _mont_mul_ints(a, b, c)
     return _mont_redc(_product_columns(a, b), c).to(torch.int32)
 
 
@@ -198,9 +231,35 @@ class _Consts:
         self.p_shifts = [torch.tensor(s, dtype=torch.int64, device=device)
                          for s in f.p_shifts]
         self.n0inv = f.n0inv
+        self.p = f.host.p
+        self.r_inv = f.host.r_inv
         self.r2 = _as_tensor(f.r2_limbs, device)
         self.one = _as_tensor(f.one_limbs, device)
         self.mont_one = _as_tensor(f.mont_one, device)
+
+
+def _window_chain(e: int, k: int) -> list[tuple[int, int]]:
+    """Left-to-right sliding-window exponentiation of a constant e >= 1:
+    steps (squarings, odd digit or 0) that take acc from the top window's
+    odd power to x^e, digits below 2^k.  The first step has no squarings."""
+    steps = []
+    i = e.bit_length() - 1
+    pending = 0  # squarings owed before the next digit
+    while i >= 0:
+        if not (e >> i) & 1:
+            pending += 1
+            i -= 1
+            continue
+        j = max(i - k + 1, 0)
+        while not (e >> j) & 1:  # the window ends on a set bit
+            j += 1
+        digit = (e >> j) & ((1 << (i - j + 1)) - 1)
+        steps.append((pending + (i - j + 1) if steps else 0, digit))
+        pending = 0
+        i = j - 1
+    if pending:
+        steps.append((pending, 0))
+    return steps
 
 
 class TField:
@@ -217,15 +276,15 @@ class TField:
                               if (p << k) < (1 << 256))
 
         self.r2_limbs = pack_int(host.r2)  # R^2 mod p (for encoding)
+        # R^3 mod p (reducing a 512-bit challenge on device)
+        self.r3_limbs = pack_int(host.r2 * host.r % p)
         self.one_limbs = pack_int(1)  # literal 1 (for decoding)
         self.mont_one = pack_int(host.r % p)  # field one in Montgomery form
         self._consts: dict[torch.device, _Consts] = {}
         self._const_cache: dict[tuple, torch.Tensor] = {}
 
-        # p-2 exponent bits, MSB first, for Fermat inversion on device
-        e = p - 2
-        self._inv_exp_bits = [(e >> i) & 1
-                              for i in range(e.bit_length() - 1, -1, -1)]
+        # p-2 as a sliding-window chain for Fermat inversion on device
+        self._inv_chain = _window_chain(p - 2, 4)
 
     def consts(self, device) -> _Consts:
         device = torch.device(device)
@@ -271,13 +330,21 @@ class TField:
         return field_cuda.mont_mul(a, b, self.name)
 
     def inv_device(self, x) -> torch.Tensor:
-        """Fermat inverse x^(p-2) of Montgomery elements [..., W]:
-        square-and-multiply over the constant exponent bits, sync-free."""
-        acc = self.consts(x.device).mont_one.expand(x.shape)
-        for bit in self._inv_exp_bits:
-            acc = self.mul(acc, acc)
-            if bit:
-                acc = self.mul(acc, x)
+        """Fermat inverse x^(p-2) of Montgomery elements [..., W], sync-free:
+        a sliding window of 4 bits over the constant exponent, 287 products
+        for Fr and 322 for Fp in all (square-and-multiply takes 326 and
+        508)."""
+        x2 = self.mul(x, x)
+        odd = [x]  # x^1, x^3, ..., x^15
+        for _ in range(7):
+            odd.append(self.mul(odd[-1], x2))
+        acc = None
+        for squarings, digit in self._inv_chain:
+            for _ in range(squarings):
+                acc = self.mul(acc, acc)
+            if digit:
+                d = odd[digit >> 1]
+                acc = d if acc is None else self.mul(acc, d)
         return acc
 
     # -- limb-major ops ([..., W, n]: limbs on axis -2) ---------------------------

@@ -4,9 +4,13 @@ ops/field_pallas.py), their plain PyTorch versions, and their build.
   K1  mont_mul     csrc/mont_mul.cu     <- field_pallas._mont_mul_lm
   K2  mont_mul_lm  csrc/mont_mul_lm.cu  <- field_pallas._mont_mul_lm_batched
   K3  padd         csrc/padd.cu         <- field_pallas._padd_lm_batched
+  K4  keccak       csrc/keccak.cu       <- transcript/device_strobe.py:
+                                           keccak_f1600_device (an XLA
+                                           program, not a Pallas kernel)
 
 K2 carries the unfused curve path (curve/tcurve.py, LASSO_TPU_PALLAS_PADD=0);
-K3 the fused one.
+K3 the fused one; K4 the device-resident transcript (its plain version is
+transcript/device_strobe.keccak_f1600_plain).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, and the wrapper raises if the kernel cannot take it.  There is no
@@ -42,16 +46,16 @@ W = _tf.W
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.abspath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.abspath(os.path.join(_HERE, "..", "build"))
-HEADER = "field256.cuh"
+HEADERS = ("field256.cuh", "keccak.cuh")
 SOURCES = {"mont_mul": "mont_mul.cu", "mont_mul_lm": "mont_mul_lm.cu",
-           "padd": "padd.cu"}
+           "padd": "padd.cu", "keccak": "keccak.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FIELD_IDS = {"Fr": 0, "Fp": 1}
 
 # Kernel launches since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0}
+launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0, "keccak": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,34 +95,32 @@ def _curve_consts(device):
 
 def padd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """add-2008-hwcd on broadcastable [..., 4, 16, n] extended points: the
-    same 9 general and 2 constant products as kernel K3."""
+    same 9 general and 2 constant products as kernel K3, stacked into three
+    products of independent operands (the formula's three stages), so a
+    small batch pays the plain product's per-call cost three times, not
+    eleven."""
     c = _tf.TFp.consts(p.device)
     a_m, d_m = _curve_consts(p.device)
+    p, q = torch.broadcast_tensors(p, q)
 
-    def coords(x):  # [..., 4, W, n] -> 4 x [..., n, W]
-        return [x[..., i, :, :].movedim(-2, -1) for i in range(4)]
+    def coords(x):  # [..., 4, W, n] -> [4, ..., n, W]
+        return x.movedim(-3, 0).movedim(-2, -1)
 
     def mul(x, y):
         return _tf.mont_mul_limbs(x, y, c)
 
-    def add(x, y):
-        return _tf._add(x, y, c)
-
-    def sub(x, y):
-        return _tf._sub(x, y, c)
-
     x1, y1, z1, t1 = coords(p)
     x2, y2, z2, t2 = coords(q)
-    a_ = mul(x1, x2)
-    b_ = mul(y1, y2)
-    c_ = mul(mul(t1, t2), d_m)
-    d_ = mul(z1, z2)
-    e = sub(sub(mul(add(x1, y1), add(x2, y2)), a_), b_)
-    f = sub(d_, c_)
-    g = add(d_, c_)
-    h = sub(b_, mul(a_, a_m))
-    out = [mul(e, f), mul(g, h), mul(f, g), mul(e, h)]
-    return torch.stack([o.movedim(-1, -2) for o in out], dim=-3)
+    s1, s2 = _tf._add(torch.stack([x1, x2]), torch.stack([y1, y2]), c)
+    a_, b_, tt, d_, s = mul(torch.stack([x1, y1, t1, z1, s1]),
+                            torch.stack([x2, y2, t2, z2, s2]))
+    c_, a_a = mul(torch.stack([tt, a_]),
+                  torch.stack([d_m.expand(tt.shape), a_m.expand(a_.shape)]))
+    e = _tf._sub(_tf._sub(s, a_, c), b_, c)
+    f, h = _tf._sub(torch.stack([d_, b_]), torch.stack([c_, a_a]), c)
+    g = _tf._add(d_, c_, c)
+    out = mul(torch.stack([e, g, f, e]), torch.stack([f, h, g, h]))
+    return out.movedim(-1, -2).movedim(0, -3)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +145,7 @@ def _nvcc() -> str:
 
 def _build_dir() -> str:
     h = hashlib.sha256()
-    for name in [HEADER] + sorted(SOURCES.values()):
+    for name in list(HEADERS) + sorted(SOURCES.values()):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -212,9 +214,12 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.lasso_mont_mul_lm.argtypes = [vp, vp, vp, i64, i64, ctypes.c_int,
                                           ctypes.c_int, vp]
         lib.lasso_mont_mul_lm.restype = ctypes.c_int
-    else:
+    elif name == "padd":
         lib.lasso_padd.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.lasso_padd.restype = ctypes.c_int
+    else:
+        lib.lasso_keccak_f1600.argtypes = [vp, i64, vp]
+        lib.lasso_keccak_f1600.restype = ctypes.c_int
     _libs[name] = lib
     return lib
 
@@ -326,6 +331,29 @@ def padd_cuda(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     _check_launch(rc, "padd")
     launch_counts["padd"] += 1
     return out
+
+
+_K4 = None  # K4's C entry, bound on first use
+STATE_BYTES = 200
+
+
+def keccak_cuda(states: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on contiguous int32 CUDA byte states [..., 200]: each
+    state is permuted in place.  Returns `states`."""
+    global _K4
+    _check_operand(states, "keccak states")
+    if states.dim() == 0 or states.shape[-1] != STATE_BYTES:
+        raise ValueError(f"keccak: expected [..., {STATE_BYTES}] byte states, "
+                         f"got {tuple(states.shape)}")
+    count = states.numel() // STATE_BYTES
+    if count == 0:
+        return states
+    if _K4 is None:
+        _K4 = _lib("keccak").lasso_keccak_f1600
+    rc = _K4(states.data_ptr(), count, _raw_stream(states))
+    _check_launch(rc, "keccak")
+    launch_counts["keccak"] += 1
+    return states
 
 
 def _on_cpu(*xs) -> bool:

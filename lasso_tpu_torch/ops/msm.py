@@ -9,7 +9,10 @@ Same formulation as the JAX package:
     parallel, one curve add (kernel K3) per step;
   * bucket weighted sum sum_b (b+1)*B_b by the blocked suffix accumulation
     (_bucket_weighted_sum_blocked);
-  * windows combined by Horner with c doublings per step.
+  * windows combined by Horner with c doublings per step;
+  * for a fixed basis, the flat MSM over pre-doubled window bases
+    (predoubled_windows, _msm_kernel_flat): no Horner and no host sync,
+    for the device-transcript route's opening proofs.
 
 Every function takes leading batch axes: the Hyrax row commits run all rows
 and all windows through one sequence of curve adds, where the reference
@@ -24,13 +27,15 @@ compared as canonical (compressed) points, never as raw limbs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lasso_tpu_torch.curve import host as hostcurve
 from lasso_tpu_torch.curve.tcurve import (from_host_points, identity, padd,
                                           pdbl, pneg, pselect, to_host_point,
                                           to_host_points, tree_sum)
-from lasso_tpu_torch.field.tfield import TFr, W
+from lasso_tpu_torch.field.tfield import TFr, W, upload
 
 
 def window_plan(n: int, max_bits: int) -> tuple[int, int]:
@@ -50,17 +55,31 @@ def _extract_digits(scalars, c: int, num_windows: int):
     Returns bucket_ids [..., k, n] int64: digit-1, with sentinel 2^c - 1 for
     digit 0 (bucket array size 2^c: 2^c - 1 real buckets + sentinel)."""
     mask = (1 << c) - 1
+    limb, shift, nxt = _digit_plan(c, num_windows, scalars.device)
     s = scalars.to(torch.int64)
-    raw = []
-    for w in range(num_windows):
-        off = w * c
-        k, sh = off // 16, off % 16
-        lo = s[..., k] >> sh
-        if k + 1 < W and sh > 0:
-            lo = lo | (s[..., k + 1] << (16 - sh))
-        raw.append(lo & mask)
-    digits = torch.stack(raw, dim=-2)  # [..., k, n] in [0, 2^c)
+    # window w: bits w*c.. of limb `limb`, then the next limb's low bits
+    # (none past the top limb: `nxt` points at a zero column there)
+    s = F.pad(s, (0, 1))
+    digits = (((s[..., limb] >> shift) | (s[..., nxt] << (16 - shift)))
+              & mask).movedim(-1, -2)  # [..., k, n] in [0, 2^c)
     return torch.where(digits == 0, mask, digits - 1)
+
+
+_DIGIT_PLANS: dict[tuple, tuple] = {}
+
+
+def _digit_plan(c: int, num_windows: int, device):
+    """Per window: its first limb, the bit shift in it, and the limb after
+    it (W, a zero column, past the top limb); on `device`, cached."""
+    key = (c, num_windows, torch.device(device))
+    got = _DIGIT_PLANS.get(key)
+    if got is None:
+        offs = [w * c for w in range(num_windows)]
+        plan = np.array([[o // 16 for o in offs], [o % 16 for o in offs],
+                         [min(o // 16 + 1, W) for o in offs]], dtype=np.int64)
+        got = tuple(upload(plan, device))
+        _DIGIT_PLANS[key] = got
+    return got
 
 
 def _scatter_points(buckets, idx, vals):
@@ -70,19 +89,24 @@ def _scatter_points(buckets, idx, vals):
     buckets.scatter_(-1, full, vals)
 
 
-def _segmented_sum_sorted(points, ids, num_buckets: int):
+def _segmented_sum_sorted(points, ids, num_buckets: int,
+                          fixed: bool = False):
     """points [..., 4, W, n] sorted by ids [..., n]; per-bucket sums
     [..., 4, W, num_buckets+1] (the last slot is the sentinel bucket, to be
     dropped).  Segmented Hillis-Steele scan: rounds stop once no lane has a
-    same-bucket partner at the current stride."""
+    same-bucket partner at the current stride, which the host reads from
+    the device each round; `fixed` runs all ceil(log2 n) strides instead
+    (the extra ones are masked and change no value), with no host sync.
+    The sentinel's run (zero digits, often the longest) is not summed."""
     n = points.shape[-1]
     lead = points.shape[:-3]
     dev = points.device
     idx = torch.arange(n, device=dev)
     stride = 1
     while stride < n:
-        same = (idx >= stride) & (torch.roll(ids, stride, dims=-1) == ids)
-        if not bool(same.any()):
+        same = ((idx >= stride) & (torch.roll(ids, stride, dims=-1) == ids)
+                & (ids != num_buckets))
+        if not fixed and not bool(same.any()):
             break
         rolled = torch.roll(points, stride, dims=-1)
         points = pselect(same, padd(points, rolled), points)
@@ -236,6 +260,63 @@ def _msm_kernel(points, scalars, c: int, num_windows: int):
             total = pdbl(total)
         total = padd(total, window_sums[..., num_windows - 2 - i, :, :, :])
     return total
+
+
+# (c, num_windows) of _msm_kernel_flat for 253-bit scalars, whatever the
+# number of bases n.  The flat MSM is a chain of curve adds:
+# ceil(log2(num_windows * n)) scan steps over num_windows * n points, then
+# 2c for the weighted sum of its 2^c - 1 buckets (unblocked up to 127).
+# 7-bit windows are the widest that keep the buckets unblocked: 14 adds
+# plus the scan of 37 * n points.  (The reference's window_plan gives
+# 8-bit windows at n = 1026, whose 255 buckets take ~70 adds blocked;
+# 5-bit windows save 4 adds a scan but widen it by 38%.)
+FLAT_WINDOW_PLAN = (7, 37)
+
+
+def predoubled_windows(points, c: int, num_windows: int):
+    """[4, W, n] -> [4, W, num_windows * n]: slice w holds 2^(c*w) * P_j.
+
+    Once per fixed basis (the caller caches it): every window's 2^(c*w)
+    weight is folded into the basis, so `_msm_kernel_flat` needs no Horner
+    combine, whose ~max_bits sequential doublings dominate a small
+    full-width MSM."""
+    slices = []
+    cur = points
+    for _ in range(num_windows):
+        slices.append(cur)
+        for _ in range(c):
+            cur = pdbl(cur)
+    return torch.cat(slices, dim=-1)
+
+
+def _msm_kernel_flat(pd_points, scalars, c: int, num_windows: int):
+    """MSM over pre-doubled window bases (predoubled_windows), with no host
+    sync.  pd_points [4, W, num_windows * n]; scalars [..., n, W] canonical
+    integer limbs.  Returns [..., 4, W, 1].
+
+    All windows' (digit, pre-scaled point) pairs form one flat bucket
+    problem: sort the num_windows * n pairs by digit, reduce the runs of
+    equal digits, weighted-sum the 2^c - 1 buckets.  The runs reduce by the
+    segmented scan, each stride one curve add over the whole array: on a
+    card all ceil(log2 kn) strides, so the host never waits (at these
+    latency-bound sizes 10 to 17 launches, where the blocked reduction
+    takes about 70); on the CPU, where reading the result costs nothing,
+    it stops at the longest run.  The reference's `_msm_kernel_flat_batch`
+    (a vmap over a batch of scalar vectors) is this function with leading
+    axes on `scalars`, which every reduction here takes."""
+    kn = pd_points.shape[-1]
+    n = scalars.shape[-2]
+    lead = scalars.shape[:-2]
+    assert kn == num_windows * n
+    num_buckets = (1 << c) - 1
+    ids = _extract_digits(scalars, c, num_windows).reshape(lead + (kn,))
+    sorted_ids, order = torch.sort(ids, dim=-1, stable=True)
+    pts_pm = pd_points.reshape(4 * W, kn).t()  # point-major rows
+    sorted_pts = pts_pm[order.reshape(-1)].reshape(
+        lead + (kn, 4 * W)).movedim(-1, -2).reshape(lead + (4, W, kn))
+    seg = _segmented_sum_sorted(sorted_pts, sorted_ids, num_buckets,
+                                fixed=sorted_pts.is_cuda)
+    return _bucket_weighted_sum_blocked(seg[..., :num_buckets])
 
 
 def _bits_of_col_max(col_max) -> int:

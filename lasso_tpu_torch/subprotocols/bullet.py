@@ -1,10 +1,27 @@
 """Bulletproofs-style inner-product reduction (port of
 subprotocols/bullet.py; reference: src/subprotocols/bullet.rs).
 
-While the half-length is above MSM_HOST_MAX, each round issues two device
-MSMs (L and R) and folds the scalar vectors with field ops and the basis
-with a batched double-and-add (`_fold_points`); the small tail rounds run
-on the host, the basis fold on the native core.
+With the host transcript: while the half-length is above MSM_HOST_MAX,
+each round issues two device MSMs (L and R) and folds the scalar vectors
+with field ops and the basis with a batched double-and-add
+(`_fold_points`); the small tail rounds run on the host, the basis fold on
+the native core.
+
+With the transcript on the device, `_device_dppl` runs a whole
+DotProductProofLog -- the Cx commitment, every absorb and challenge, all
+Bullet rounds and the closing sigma protocol -- on the device, and one
+download carries every proof component and the final strobe state:
+  * the basis fold is carried on the scalars ("delayed fold"): original
+    basis G_j sits at position j mod m of round k's folded basis with
+    weight w_j, the product over earlier rounds of u (where j is in the
+    upper half there) or u^-1, so L_k = MSM(G, s) with
+    s_j = w_j * a_lo[(j mod m) - m/2] for j in the upper half, and R_k
+    likewise: no point is ever folded;
+  * every MSM runs over pre-doubled window bases of G ++ q ++ h
+    (ops/msm._msm_kernel_flat), and each round's L and R are one MSM
+    with a batch of 2;
+  * delta = g_hat*d + h*r_delta becomes one MSM over the same bases with
+    scalars (d*w, 0, r_delta).
 """
 
 from __future__ import annotations
@@ -15,11 +32,14 @@ import torch
 
 from lasso_tpu_torch import native
 from lasso_tpu_torch.curve import host as hostcurve
-from lasso_tpu_torch.curve.tcurve import (from_host_points, identity, padd,
+from lasso_tpu_torch.curve.tcurve import (affine_int_limbs_device,
+                                          compress_affine_bytes_device,
+                                          from_host_points, identity, padd,
                                           pdbl, to_host_point, to_host_points)
 from lasso_tpu_torch.field.host import Fr
-from lasso_tpu_torch.field.tfield import TFr
+from lasso_tpu_torch.field.tfield import TFr, W
 from lasso_tpu_torch.ops import msm as _msm
+from lasso_tpu_torch.transcript.device_strobe import _post_challenge_meta
 from lasso_tpu_torch.utils.errors import InputTooLarge, InvalidInputLength
 
 
@@ -41,6 +61,106 @@ def _fold_points(g_lo, g_hi, u_inv: int, u: int):
 
 def _dot(a, b):
     return TFr.sum(TFr.mul(a, b))
+
+
+def _flat_msm_affine(pd_bases, scalars_mont, c_w: int, n_w: int):
+    """MSMs of [..., n+2, W] Montgomery scalars over the pre-doubled bases
+    -> canonical affine int limbs (xa, ya) [B, W] and compressed bytes
+    [B, 32] of the B = prod(...) results."""
+    pts = _msm._msm_kernel_flat(pd_bases, TFr.to_int_limbs(scalars_mont),
+                               c_w, n_w)  # [..., 4, W, 1]
+    pts = pts.reshape(-1, 4, W).movedim(0, -1)  # [4, W, B]
+    xa, ya = affine_int_limbs_device(pts)
+    return xa, ya, compress_affine_bytes_device(xa, ya)
+
+
+def _device_dppl(dt, x0, b0, pd_bases, cy_bytes, beta_bytes, blind_x,
+                 blinds_l, blinds_r, d_mont, r_delta_mont, r_beta_mont,
+                 blind_gamma, num_rounds: int, c_w: int, n_w: int):
+    """DotProductProofLog on the device, with the transcript `dt` there;
+    no host sync.
+
+    x0 (secret), b0 (public): [n, W] Montgomery, n = 2^num_rounds;
+    pd_bases: [4, W, n_w * (n+2)] pre-doubled window bases of G ++ q ++ h
+    under the window plan (c_w, n_w); cy_bytes, beta_bytes: [32] bytes of
+    the host-known points; blind_x, blind_gamma, d, r_delta, r_beta: [W]
+    Montgomery; blinds_l, blinds_r: [>= num_rounds, W] Montgomery.
+
+    Returns limbs [2 * (2 * num_rounds + 2) + 2, W]: the canonical affine x
+    then y coordinates of [Cx, L_0..L_{k-1}, R_0..R_{k-1}, delta], then
+    z1, z2 as canonical integer limbs."""
+    n = x0.shape[0]
+    assert n == 1 << num_rounds
+    assert pd_bases.shape[-1] == n_w * (n + 2)
+    device = x0.device
+    zero = torch.zeros((1, W), dtype=torch.int32, device=device)
+
+    # Cx = <x, G> + blind_x * h (the q slot gets a zero scalar)
+    cx_xa, cx_ya, cx_bytes = _flat_msm_affine(
+        pd_bases, torch.cat([x0, zero, blind_x[None]]), c_w, n_w)
+    dt.append_point_bytes(b"Cx", cx_bytes[0])
+    dt.append_point_bytes(b"Cy", cy_bytes)
+    dt.append_scalars(b"a", b0)
+
+    idx = torch.arange(n, device=device)
+    a, b = x0, b0
+    w = TFr.ones(n, device)
+    bf = blind_gamma  # the blinds' running sum
+    lr_xa, lr_ya = [], []
+    for k in range(num_rounds):
+        m = n >> k
+        half = m >> 1
+        a_lo, a_hi, b_lo, b_hi = a[:half], a[half:], b[:half], b[half:]
+        c_lr = TFr.finish_sum(TFr.sum_columns(TFr.mul(
+            torch.stack([a_lo, a_hi], dim=1),
+            torch.stack([b_hi, b_lo], dim=1))))  # [2, W]: <a_lo,b_hi>, <a_hi,b_lo>
+
+        # the delayed fold: basis j sits at position pj of this round's
+        # folded basis, in its upper half where hi
+        pj = idx & (m - 1)
+        hi = pj >= half
+        s_l = torch.where(hi[:, None], TFr.mul(w, a_lo[torch.where(
+            hi, pj - half, 0)]), 0)
+        s_r = torch.where(hi[:, None], 0, TFr.mul(w, a_hi[torch.where(
+            hi, 0, pj)]))
+        scalars = torch.stack([
+            torch.cat([s_l, c_lr[:1], blinds_l[k][None]]),
+            torch.cat([s_r, c_lr[1:], blinds_r[k][None]])])  # [2, n+2, W]
+        xa, ya, lr_bytes = _flat_msm_affine(pd_bases, scalars, c_w, n_w)
+        lr_xa.append(xa)
+        lr_ya.append(ya)
+
+        dt.append_point_bytes(b"L", lr_bytes[0])
+        dt.append_point_bytes(b"R", lr_bytes[1])
+        u = dt.challenge_scalar(b"u")
+        assert dt.meta() == _post_challenge_meta(), \
+            "bullet round exit not canonical"
+        u_inv = TFr.inv_device(u)
+        uu = TFr.mul(torch.stack([u, u_inv]), torch.stack([u, u_inv]))
+
+        a = TFr.add(TFr.mul(a_lo, u), TFr.mul(a_hi, u_inv))
+        b = TFr.add(TFr.mul(b_lo, u_inv), TFr.mul(b_hi, u))
+        w = TFr.mul(w, torch.where(hi[:, None], u, u_inv))
+        # blind_fin += blind_l * u^2 + blind_r * u^-2
+        blr = TFr.mul(torch.stack([blinds_l[k], blinds_r[k]]), uu)
+        bf = TFr.add(bf, TFr.add(blr[0], blr[1]))
+
+    # delta = g_hat*d + h*r_delta with g_hat = MSM(G, w): one MSM over
+    # (G ++ q ++ h) with scalars (d*w, 0, r_delta)
+    d_xa, d_ya, d_bytes = _flat_msm_affine(
+        pd_bases, torch.cat([TFr.mul(w, d_mont), zero, r_delta_mont[None]]),
+        c_w, n_w)
+    dt.append_point_bytes(b"delta", d_bytes[0])
+    dt.append_point_bytes(b"beta", beta_bytes)
+    c = dt.challenge_scalar(b"c")
+
+    x_hat, a_hat = a[0], b[0]
+    z1 = TFr.add(d_mont, TFr.mul(c, TFr.mul(x_hat, a_hat)))
+    z2 = TFr.add(TFr.mul(a_hat, TFr.add(TFr.mul(c, bf), r_beta_mont)),
+                 r_delta_mont)
+    xs = [cx_xa] + [v[:1] for v in lr_xa] + [v[1:] for v in lr_xa] + [d_xa]
+    ys = [cx_ya] + [v[:1] for v in lr_ya] + [v[1:] for v in lr_ya] + [d_ya]
+    return torch.cat(xs + ys + [TFr.to_int_limbs(torch.stack([z1, z2]))])
 
 
 @dataclass

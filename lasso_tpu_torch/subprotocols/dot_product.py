@@ -3,22 +3,28 @@ reference: src/subprotocols/dot_product.rs).
 
 `DotProductProof` is the linear-size variant; `DotProductProofLog` wraps the
 bullet reduction for log-size proofs.  Vector math runs on the proof's
-device; the few per-proof scalar commitments are host group ops.
+device; the few per-proof scalar commitments are host group ops.  With the
+transcript on the device, `DotProductProofLog` runs as one device program
+(bullet._device_dppl) over cached pre-doubled bases.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from lasso_tpu_torch.curve import host as hostcurve
 from lasso_tpu_torch.curve.tcurve import from_host_points, to_host_point
 from lasso_tpu_torch.field.host import Fr
-from lasso_tpu_torch.field.tfield import TFr
+from lasso_tpu_torch.field.tfield import TFr, unpack_ints, upload
 from lasso_tpu_torch.ops import msm as _msm
 from lasso_tpu_torch.poly.commitments import MultiCommitGens, commit_scalar
-from lasso_tpu_torch.subprotocols.bullet import BulletReductionProof
+from lasso_tpu_torch.subprotocols.bullet import (BulletReductionProof,
+                                                 _device_dppl)
+from lasso_tpu_torch.subprotocols.sumcheck import _device_sumcheck_supported
+from lasso_tpu_torch.transcript.device_strobe import DeviceTranscript
 from lasso_tpu_torch.utils.errors import InvalidInputLength, LassoError
 from lasso_tpu_torch.utils.tracing import instrument, span
 
@@ -32,6 +38,25 @@ def _gens_device(gens: MultiCommitGens, device) -> torch.Tensor:
         dev = from_host_points(gens.G + [gens.h], device)
         cache[device] = dev
     return dev
+
+
+def _predoubled_gens(gens: "DotProductProofGens", device):
+    """Pre-doubled window bases of G ++ q ++ h (ops/msm.predoubled_windows)
+    for the fused opening proof, once per gens and device.
+
+    Returns (pd_bases [4, W, n_w * (n+2)], c_w, n_w)."""
+    device = torch.device(device)
+    cache = gens.__dict__.setdefault("_pd_cache", {})
+    got = cache.get(device)
+    if got is None:
+        g_dev = _gens_device(gens.gens_n, device)  # G ++ h
+        bases = torch.cat([g_dev[..., : gens.n],
+                           from_host_points([gens.gens_1.G[0]], device),
+                           g_dev[..., gens.n:]], dim=-1)
+        c_w, n_w = _msm.FLAT_WINDOW_PLAN
+        got = (_msm.predoubled_windows(bases, c_w, n_w), c_w, n_w)
+        cache[device] = got
+    return got
 
 
 def batch_commit(values_dev, blind: int, gens: MultiCommitGens,
@@ -53,8 +78,24 @@ class DotProductProofGens:
 
     @staticmethod
     def new(n: int, label: bytes) -> "DotProductProofGens":
-        gens_n, gens_1 = MultiCommitGens.new(n + 1, label).split_at(n)
-        return DotProductProofGens(n, gens_n, gens_1)
+        """The generators for (n, label), one object per pair, like
+        MultiCommitGens.new: the device bases and the pre-doubled windows
+        cached on it serve every proof over the same generators."""
+        key = (n, bytes(label))
+        got = _DPP_GENS_CACHE.get(key)
+        if got is None:
+            gens_n, gens_1 = MultiCommitGens.new(n + 1, label).split_at(n)
+            got = DotProductProofGens(n, gens_n, gens_1)
+            _DPP_GENS_CACHE[key] = got
+        return got
+
+
+# one DotProductProofGens per (n, label) for the life of the process, as
+# poly/commitments.py keeps its MultiCommitGens: nothing clears it, and a
+# prover holds one entry per opening size it uses (a handful).  Each entry
+# keeps its device bases and pre-doubled windows, 37 * (n + 2) points
+# (256 bytes each) per device it was used on.
+_DPP_GENS_CACHE: dict[tuple[int, bytes], DotProductProofGens] = {}
 
 
 @dataclass
@@ -143,6 +184,48 @@ class DotProductProofLog:
     PROTOCOL_NAME = b"dot product proof (log)"
 
     @staticmethod
+    def _prove_fused(gens: DotProductProofGens, transcript, random_tape,
+                     x_dev, blind_x: int, a_dev, y: int, blind_y: int):
+        """The whole protocol (Cx, absorbs, Bullet rounds, delta, c, z1,
+        z2) in bullet._device_dppl with the transcript on the device; one
+        download carries every proof component and the strobe state."""
+        device = x_dev.device
+        n = x_dev.shape[0]
+        lg_n = (n - 1).bit_length()
+
+        d = random_tape.random_scalar(b"d")
+        r_delta = random_tape.random_scalar(b"r_delta")
+        r_beta = random_tape.random_scalar(b"r_delta")
+        v1 = random_tape.random_vector(b"blinds_vec_1", 2 * lg_n)
+        v2 = random_tape.random_vector(b"blinds_vec_2", 2 * lg_n)
+
+        cy = commit_scalar(y % Fr.p, blind_y, gens.gens_1)
+        beta = commit_scalar(d, r_beta, gens.gens_1)
+        cy_beta = upload(np.frombuffer(
+            cy.to_compressed_bytes() + beta.to_compressed_bytes(),
+            np.uint8).astype(np.int32), device)
+        pd_bases, c_w, n_w = _predoubled_gens(gens, device)
+        enc = TFr.encode_ints(
+            [blind_x, d, r_delta, r_beta, blind_x + blind_y] + v1 + v2,
+            device)
+
+        dt = DeviceTranscript.from_host(transcript, device)
+        limbs = _device_dppl(
+            dt, x_dev, a_dev, pd_bases, cy_beta[:32], cy_beta[32:], enc[0],
+            enc[5: 5 + 2 * lg_n], enc[5 + 2 * lg_n:], enc[1], enc[2], enc[3],
+            enc[4], lg_n, c_w, n_w)
+        vals = unpack_ints(dt.finish(transcript, limbs))
+
+        k = 2 * lg_n + 2
+        pts = [hostcurve.Point.from_affine(x, yv)
+               for x, yv in zip(vals[:k], vals[k: 2 * k])]
+        z1, z2 = vals[2 * k:]
+        proof = DotProductProofLog(
+            BulletReductionProof(pts[1: 1 + lg_n], pts[1 + lg_n: k - 1]),
+            pts[k - 1], beta, z1, z2)
+        return proof, pts[0], cy
+
+    @staticmethod
     @instrument("DotProductProofLog.prove")
     def prove(gens: DotProductProofGens, transcript, random_tape,
               x_dev, blind_x: int, a_dev, y: int, blind_y: int,
@@ -155,6 +238,10 @@ class DotProductProofLog:
         n = x_dev.shape[0]
         assert gens.n == n
         lg_n = (n - 1).bit_length()
+        if n > 1 and _device_sumcheck_supported(transcript, x_dev.device):
+            return DotProductProofLog._prove_fused(
+                gens, transcript, random_tape, x_dev, blind_x, a_dev, y,
+                blind_y)
 
         d = random_tape.random_scalar(b"d")
         r_delta = random_tape.random_scalar(b"r_delta")

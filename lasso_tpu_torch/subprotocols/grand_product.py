@@ -1,11 +1,18 @@
 """Grand product circuits + batched argument (port of
-subprotocols/grand_product.py, host-transcript layer loop; reference:
-src/subprotocols/grand_product.rs).
+subprotocols/grand_product.py; reference: src/subprotocols/grand_product.rs).
 
 A batch of I same-sized product circuits is one tensor per layer
 ([I, len, W]), built bottom-up with one Montgomery product per layer; the
 batched layer sumcheck runs through subprotocols/sumcheck.
 prove_cubic_batched with all instances on the leading axis.
+
+With the transcript on the device (sumcheck._device_sumcheck_supported),
+every layer -- its RLC coefficients, the eq table, the cubic rounds, the
+claim appends and the layer challenge -- runs in one loop on the device,
+and the argument downloads once at its end.  The reference fuses only the
+layers that fit its fixed XLA buffers (GP_FIX_CAP) and runs the rest
+through prove_cubic_batched; the port runs every layer at its exact shape,
+with the same transcript bytes.
 """
 
 from __future__ import annotations
@@ -18,7 +25,13 @@ from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr, W
 from lasso_tpu_torch.poly.dense import eq_evals_device, eq_evaluate_host
 from lasso_tpu_torch.subprotocols.sumcheck import (SumcheckInstanceProof,
+                                                   _cubic_rounds_device,
+                                                   _device_sumcheck_supported,
+                                                   _round_polys,
                                                    prove_cubic_batched)
+from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
+                                                      _post_challenge_meta,
+                                                      scalar_bytes)
 from lasso_tpu_torch.utils.errors import LassoError
 from lasso_tpu_torch.utils.tracing import instrument
 
@@ -130,10 +143,14 @@ class BatchedGrandProductCircuit:
         self._stored = {}
         self._memo = None
 
+    def evaluate_device(self) -> torch.Tensor:
+        """Root products, one per instance ([I, W] Montgomery)."""
+        top = self.layer(self._top_t)
+        return TFr.mul(top[:, 0], top[:, 1])
+
     def evaluate(self) -> list[int]:
         """Root products, one per instance (host ints)."""
-        top = self.layer(self._top_t)
-        return TFr.decode(TFr.mul(top[:, 0], top[:, 1]))
+        return TFr.decode(self.evaluate_device())
 
 
 @dataclass
@@ -152,10 +169,13 @@ class BatchedGrandProductArgument:
     def prove(circuits: BatchedGrandProductCircuit, transcript):
         """Returns (argument, rand)."""
         num_layers = circuits.num_layers
+        device = circuits.device
+        if _device_sumcheck_supported(transcript, device):
+            return BatchedGrandProductArgument._prove_device(circuits,
+                                                             transcript)
         claims_to_verify = circuits.evaluate()
         proof_layers: list[LayerProofBatched] = []
         rand: list[int] = []
-        device = circuits.device
 
         for layer_id in range(num_layers - 1, -1, -1):
             layer_len = 1 << (num_layers - 1 - layer_id)  # width per side
@@ -186,6 +206,29 @@ class BatchedGrandProductArgument:
             rand = [r_layer] + rand_prod
             proof_layers.append(LayerProofBatched(proof, claims_left, claims_right))
 
+        return BatchedGrandProductArgument(proof_layers), rand
+
+    @staticmethod
+    def _prove_device(circuits: BatchedGrandProductCircuit, transcript):
+        """The argument with the transcript on the circuits' device: one
+        upload of the strobe state, one download at the end."""
+        num_layers = circuits.num_layers
+        i_cnt = circuits.num_instances
+        dt = DeviceTranscript.from_host(transcript, circuits.device)
+        limbs = _prove_layers_device(circuits, dt)
+        vals = TFr.decode(dt.finish(transcript, limbs))
+
+        proof_layers: list[LayerProofBatched] = []
+        off = 0
+        for t in range(num_layers):  # layer t has t rounds
+            polys, _ = _round_polys(vals[off:], t, 4)
+            off += 5 * t
+            cl, cr = vals[off: off + i_cnt], vals[off + i_cnt: off + 2 * i_cnt]
+            off += 2 * i_cnt
+            proof_layers.append(
+                LayerProofBatched(SumcheckInstanceProof(polys), cl, cr))
+        rand = vals[off:]
+        assert len(rand) == num_layers
         return BatchedGrandProductArgument(proof_layers), rand
 
     def verify(self, claims_prod_vec: list[int], n: int, transcript):
@@ -230,3 +273,36 @@ class BatchedGrandProductArgument:
             rand = [r_layer] + rand_prod
 
         return claims_to_verify, rand
+
+
+def _prove_layers_device(circuits: BatchedGrandProductCircuit, dt):
+    """Every layer of the batched argument, from the root down, with the
+    transcript `dt` on the device; no host sync.  Returns limbs [k, W]: per
+    layer t its t rounds (4 coefficients and the challenge each), then the
+    I left and the I right claims; last the final point rand [L, W]."""
+    num_layers = circuits.num_layers
+    i_cnt = circuits.num_instances
+    device = circuits.device
+    claims = circuits.evaluate_device()  # [I, W]
+    rand: list[torch.Tensor] = []
+    out = []
+    for layer_id in range(num_layers - 1, -1, -1):
+        coeffs = torch.stack([dt.challenge_scalar(b"rand_coeffs_next_layer")
+                              for _ in range(i_cnt)])  # [I, W]
+        claim = TFr.finish_sum(TFr.sum_columns(TFr.mul(coeffs, claims)))
+        eq_poly = eq_evals_device(rand, device)
+        a, b, _, rows, rs = _cubic_rounds_device(
+            dt, circuits.left_layers[layer_id],
+            circuits.right_layers[layer_id], eq_poly, claim, coeffs, len(rand))
+        left, right = a[:, 0], b[:, 0]  # [I, W]
+        lb, rb = scalar_bytes(left), scalar_bytes(right)
+        for i in range(i_cnt):
+            dt.append_message_dynamic(b"claim_prod_left", lb[i])
+            dt.append_message_dynamic(b"claim_prod_right", rb[i])
+        r_layer = dt.challenge_scalar(b"challenge_r_layer")
+        assert dt.meta() == _post_challenge_meta(), \
+            "strobe layer exit not canonical"
+        claims = TFr.add(left, TFr.mul(r_layer, TFr.sub(right, left)))
+        rand = [r_layer] + rs
+        out += rows + [left, right]
+    return torch.cat(out + [torch.stack(rand)])

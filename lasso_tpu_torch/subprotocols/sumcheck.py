@@ -1,26 +1,41 @@
-"""Sumcheck prover/verifier (port of subprotocols/sumcheck.py, host-
-transcript path; reference: src/subprotocols/sumcheck.rs).
+"""Sumcheck prover/verifier (port of subprotocols/sumcheck.py; reference:
+src/subprotocols/sumcheck.rs).
 
 Each round evaluates every stacked polynomial at the degree+1 round points
 (incremental `prev + (hi - lo)` updates over the half-cube), combines them
 with the strategy's g, and reduces each round point to one field element on
-the device; the host interpolates the round polynomial, feeds the
-Fiat-Shamir transcript, and the device binds all tables to the challenge.
+the device; with the host transcript, the host interpolates the round
+polynomial, feeds the Fiat-Shamir transcript, and the device binds all
+tables to the challenge.
 
 PyTorch runs eagerly, so every round uses exact shapes: the reference's
 fixed-size masked buffers (SUMCHECK_FIX) only exist to bound XLA
 recompilation, and they give the same field values.
+
+With the transcript on the device (transcript/device_strobe.py, chosen by
+_device_sumcheck_supported), the rounds never leave the device: each
+round's polynomial is interpolated there (one product with the inverse
+Vandermonde matrix), absorbed, and its challenge squeezed there, and the
+whole sumcheck downloads once at its end, as the reference's device path
+does.  Where the reference peels round 0 and loops the rest in one
+`fori_loop`, the port runs every round the same way in Python.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from lasso_tpu_torch.field.host import Fr
-from lasso_tpu_torch.field.tfield import TFr
-from lasso_tpu_torch.poly.unipoly import CompressedUniPoly, UniPoly
+from lasso_tpu_torch.field.tfield import TFr, W, pack_int
+from lasso_tpu_torch.poly.unipoly import (CompressedUniPoly, UniPoly,
+                                          _solve_vandermonde)
+from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
+                                                      _post_challenge_meta,
+                                                      scalar_bytes)
 from lasso_tpu_torch.utils.errors import LassoError
 from lasso_tpu_torch.utils.tracing import instrument
 
@@ -128,6 +143,131 @@ class ZKSumcheckInstanceProof:
         return self.comm_evals[-1], r
 
 
+# ---------------------------------------------------------------------------
+# the device-transcript rounds
+# ---------------------------------------------------------------------------
+
+def _device_sumcheck_supported(transcript, device) -> bool:
+    """Whether the provers keep the transcript on the device: by default
+    when their tensors lie on a card (the reference: on a TPU); never for a
+    TestTranscript.  LASSO_TPU_DEVICE_TRANSCRIPT, read at each call: `0` or
+    `off` takes the host path, `force` the device path on any device (the
+    CPU tests reach it so)."""
+    from lasso_tpu_torch.transcript.proof_transcript import (ProofTranscript,
+                                                             TestTranscript)
+
+    flag = os.environ.get("LASSO_TPU_DEVICE_TRANSCRIPT", "1")
+    if flag in ("0", "off"):
+        return False
+    if not isinstance(transcript, ProofTranscript) or \
+            isinstance(transcript, TestTranscript):
+        return False
+    return flag == "force" or torch.device(device).type == "cuda"
+
+
+_VINV_CACHE: dict[int, np.ndarray] = {}
+
+
+def _vandermonde_inv_mont(degree: int) -> np.ndarray:
+    """[d+1, d+1, W] Montgomery limbs of the inverse Vandermonde matrix over
+    the points 0..degree: coeffs[j] = sum_k VINV[j][k] * evals[k].  Column k
+    holds the coefficients of the polynomial that is 1 at k and 0 at the
+    other points."""
+    got = _VINV_CACHE.get(degree)
+    if got is None:
+        d = degree + 1
+        got = np.zeros((d, d, W), dtype=np.uint32)
+        for k in range(d):
+            col = _solve_vandermonde([int(i == k) for i in range(d)])
+            for j in range(d):
+                got[j, k] = pack_int(Fr.to_mont(col[j]))
+        _VINV_CACHE[degree] = got
+    return got
+
+
+def _interp_coeffs_device(evals, degree: int):
+    """evals [d+1, W] Montgomery -> coefficients [d+1, W] Montgomery."""
+    vinv = TFr.const(_vandermonde_inv_mont(degree), evals.device)
+    prods = TFr.mul(vinv, evals[None])  # [j, k, W]
+    return TFr.finish_sum(TFr.sum_columns(prods.movedim(1, 0)))
+
+
+def _append_round_poly_device(dt, coeffs) -> None:
+    """UniPoly.append_to_transcript of device coefficients [d+1, W]."""
+    dt.append_message_static(b"poly", b"UniPoly_begin")
+    dt.append_scalar_rows(b"coeff", scalar_bytes(coeffs))
+    dt.append_message_static(b"poly", b"UniPoly_end")
+
+
+def _device_round(dt, evals, degree: int):
+    """Interpolate, absorb and squeeze one round: (coeffs [d+1, W], r [W])."""
+    coeffs = _interp_coeffs_device(evals, degree)
+    _append_round_poly_device(dt, coeffs)
+    r = dt.challenge_scalar(b"challenge_nextround")
+    # every round ends at the canonical post-challenge position
+    assert dt.meta() == _post_challenge_meta(), "strobe round exit not canonical"
+    return coeffs, r
+
+
+def _prove_arbitrary_device(zs, comb, degree: int, num_rounds: int, dt):
+    """prove_arbitrary's rounds with the transcript `dt` on zs' device; no
+    host sync.  Returns (limbs [rounds * (degree + 2) + alpha, W]: each
+    round's coefficients and challenge, then the final evals; bound zs)."""
+    rows = []
+    for _ in range(num_rounds):
+        coeffs, r = _device_round(dt, _round_evals(zs, comb, degree), degree)
+        zs = _bind_top(zs, r)
+        rows += [coeffs, r[None]]
+    rows.append(zs[:, 0])
+    return torch.cat(rows), zs
+
+
+def _horner(coeffs, r):
+    """poly(r) of Montgomery coefficients [d+1, W] at r [W]."""
+    e = coeffs[-1]
+    for j in range(coeffs.shape[0] - 2, -1, -1):
+        e = TFr.add(TFr.mul(e, r), coeffs[j])
+    return e
+
+
+def _cubic_rounds_device(dt, a, b, c, e, rlc, num_rounds: int):
+    """prove_cubic_batched's rounds with the transcript `dt` on the
+    device; no host sync.  e: [W] running claim, rlc: [I, W] Montgomery.
+    Returns (a, b, c bound, rows: per round [coeffs (4), r], rs: the
+    challenges [W])."""
+    rows, rs = [], []
+    for _ in range(num_rounds):
+        ev = _cubic_round_evals(a, b, c)  # [3, I, W]
+        comb = TFr.finish_sum(TFr.sum_columns(
+            TFr.mul(ev, rlc[None]).movedim(1, 0)))  # [3, W]: t = 0, 2, 3
+        evals = torch.stack([comb[0], TFr.sub(e, comb[0]), comb[1], comb[2]])
+        coeffs, r = _device_round(dt, evals, 3)
+        a, b, c = _bind_top(a, r), _bind_top(b, r), _bind_top_single(c, r)
+        e = _horner(coeffs, r)
+        rows += [coeffs, r[None]]
+        rs.append(r)
+    return a, b, c, rows, rs
+
+
+def _prove_cubic_batched_device(e_mont, num_rounds: int, a, b, c, rlc, dt):
+    """The rounds of prove_cubic_batched and its final claims, on the
+    device: limbs [rounds * 5 + 2I + 1, W]."""
+    a, b, c, rows, _ = _cubic_rounds_device(dt, a, b, c, e_mont, rlc,
+                                            num_rounds)
+    return torch.cat(rows + [a[:, 0], b[:, 0], c[:1]])
+
+
+def _round_polys(vals, num_rounds: int, d1: int):
+    """Host ints of `num_rounds` device rounds of d1 coefficients and a
+    challenge each -> (compressed polys, challenges)."""
+    polys, rs = [], []
+    for k in range(num_rounds):
+        row = vals[k * (d1 + 1): (k + 1) * (d1 + 1)]
+        polys.append(UniPoly(row[:d1]).compress())
+        rs.append(row[d1])
+    return polys, rs
+
+
 @instrument("Sumcheck.prove")
 def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript):
     """Arbitrary-degree sumcheck prover over stacked tables [alpha, n, W].
@@ -136,6 +276,14 @@ def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript)
     r (host ints), final_evals (host ints), bound stack)."""
     zs = polys_stack
     device = zs.device
+    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
+        dt = DeviceTranscript.from_host(transcript, device)
+        limbs, zs = _prove_arbitrary_device(zs, comb, degree, num_rounds, dt)
+        vals = TFr.decode(dt.finish(transcript, limbs))
+        compressed, r_out = _round_polys(vals, num_rounds, degree + 1)
+        final_evals = vals[num_rounds * (degree + 2):]
+        return SumcheckInstanceProof(compressed), r_out, final_evals, zs
+
     compressed = []
     r_out: list[int] = []
     for _ in range(num_rounds):
@@ -187,9 +335,23 @@ def prove_cubic_batched(claim: int, num_rounds: int, a_stack, b_stack, c_poly,
     a, b, c = a_stack, b_stack, c_poly
     del a_stack, b_stack, c_poly
     device = a.device
+    num_instances = a.shape[0]
+    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
+        rlc = TFr.encode_ints(coeffs, device)
+        e_mont = TFr.encode_scalar(e, device)
+        dt = DeviceTranscript.from_host(transcript, device)
+        limbs = _prove_cubic_batched_device(e_mont, num_rounds, a, b, c, rlc,
+                                            dt)
+        del a, b, c
+        vals = TFr.decode(dt.finish(transcript, limbs))
+        compressed, r_out = _round_polys(vals, num_rounds, 4)
+        claims = vals[num_rounds * 5:]
+        return (SumcheckInstanceProof(compressed), r_out,
+                (claims[:num_instances], claims[num_instances:-1],
+                 claims[-1]))
+
     compressed = []
     r_out: list[int] = []
-    num_instances = a.shape[0]
 
     for _ in range(num_rounds):
         flat = TFr.decode(_cubic_round_evals(a, b, c).reshape(

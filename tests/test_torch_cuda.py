@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
-version, the launch counts, and a golden proof proven on the card.
+version, the launch counts, and a golden proof proven on the card on both
+transcript routes.
 
 These tests need an NVIDIA GPU with nvcc (they build the kernels); without
 one they skip.  Run them on the card, from the repository root, with
@@ -234,8 +235,36 @@ def _check_padd_kernel(dev):
                            tcurve.compress_points_device(dbl_f[k]))
 
 
+def _check_keccak_kernel(dev):
+    """K4 against its plain version on 1,000 random states and the
+    all-zero state, in one launch and one state at a time, and against the
+    host keccak; a CPU tensor is refused by the wrapper."""
+    from lasso_tpu_torch.transcript.device_strobe import (keccak_f1600_plain,
+                                                          keccak_f1600_state)
+    from lasso_tpu_torch.utils import keccak as host_keccak
+
+    states = np.random.default_rng(13).integers(0, 256, size=(1001, 200))
+    states[0] = 0
+    x = torch.as_tensor(states.astype(np.int32), device=dev)
+    want = keccak_f1600_plain(x)
+    before = field_cuda.launch_counts["keccak"]
+    got = field_cuda.keccak_cuda(x.clone())
+    assert field_cuda.launch_counts["keccak"] == before + 1
+    assert torch.equal(got, want)
+    for i in (0, 1, 1000):
+        one = x[i].clone()
+        assert keccak_f1600_state(one) is one  # in place on the card
+        assert torch.equal(one, want[i])
+        ref = bytearray(states[i].astype(np.uint8).tobytes())
+        host_keccak.keccak_f1600(ref)
+        assert bytes(one.cpu().numpy().astype(np.uint8)) == bytes(ref)
+    with pytest.raises(ValueError):
+        field_cuda.keccak_cuda(x.cpu())
+
+
 def _check_golden_and_4d(dev):
-    """The golden and_4d proof, proven on the card."""
+    """The golden and_4d proof, proven on the card (with the device
+    transcript, the default there, and with the host one)."""
     import lasso_tpu_torch.subtables.bitwise  # noqa: F401
     from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
     from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
@@ -254,16 +283,28 @@ def _check_golden_and_4d(dev):
     gens = SparsePolyCommitmentGens.new(b"gens_sparse_poly", 4, 16,
                                         strategy.num_memories, 4, device=dev)
     comm = dense.commit(gens)
-    proof = SparsePolynomialEvaluationProof.prove(
-        dense, r, gens, strategy, ProofTranscript(b"example"),
-        RandomTape(b"proof"))
     with open(os.path.join(os.path.dirname(__file__), "fixtures",
                            "golden_proofs.json")) as f:
         golden = json.load(f)["and_4d"]
-    pb, cb = serialize_proof(proof), serialize_commitment(comm)
-    assert hashlib.sha256(pb).hexdigest() == golden["proof_sha256"]
-    assert hashlib.sha256(cb).hexdigest() == golden["commitment_sha256"]
-    proof.verify(comm, r, gens, ProofTranscript(b"example"))
+    old = os.environ.pop("LASSO_TPU_DEVICE_TRANSCRIPT", None)
+    try:
+        for route in ("1", "0"):
+            os.environ["LASSO_TPU_DEVICE_TRANSCRIPT"] = route
+            before = field_cuda.launch_counts["keccak"]
+            proof = SparsePolynomialEvaluationProof.prove(
+                dense, r, gens, strategy, ProofTranscript(b"example"),
+                RandomTape(b"proof"))
+            launched = field_cuda.launch_counts["keccak"] - before
+            assert (launched > 0) == (route == "1"), (route, launched)
+            pb, cb = serialize_proof(proof), serialize_commitment(comm)
+            assert hashlib.sha256(pb).hexdigest() == golden["proof_sha256"]
+            assert hashlib.sha256(cb).hexdigest() == \
+                golden["commitment_sha256"]
+            proof.verify(comm, r, gens, ProofTranscript(b"example"))
+    finally:
+        os.environ.pop("LASSO_TPU_DEVICE_TRANSCRIPT")
+        if old is not None:
+            os.environ["LASSO_TPU_DEVICE_TRANSCRIPT"] = old
 
 
 def test_kernels_and_golden_proof_on_the_card(dev):
@@ -274,4 +315,5 @@ def test_kernels_and_golden_proof_on_the_card(dev):
         _check_mont_mul_kernels(dev, field)
         _check_mont_mul_ragged(dev, field)
     _check_padd_kernel(dev)
+    _check_keccak_kernel(dev)
     _check_golden_and_4d(dev)

@@ -2,16 +2,21 @@
 
 The proof and commitment bytes of every golden instance (AND/OR/XOR, LT,
 range check) must equal the JAX package's fixtures
-(tests/fixtures/golden_proofs.json, read as data); verify accepts honest
-proofs and rejects tampered ones.  A mid-size AND instance, whose Hyrax
-commits take the device MSM path, must give the same bytes as when every
-MSM is routed to the host Pippenger, and as on the unfused curve path.
+(tests/fixtures/golden_proofs.json, read as data), with the host transcript
+and with the device-resident one (LASSO_TPU_DEVICE_TRANSCRIPT=force, which
+takes the device paths on the CPU); verify accepts honest proofs and
+rejects tampered ones.  A mid-size AND instance, whose Hyrax commits take
+the device MSM path, must give the same bytes as when every MSM is routed
+to the host Pippenger, and as on the unfused curve path; the sumcheck and
+grand-product provers' device-transcript paths must give the host paths'
+proofs, challenges and final transcript state.
 """
 
 import hashlib
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,10 +24,15 @@ import lasso_tpu_torch.subtables.bitwise  # noqa: F401 (register strategies)
 import lasso_tpu_torch.subtables.lt  # noqa: F401
 import lasso_tpu_torch.subtables.range_check  # noqa: F401
 from lasso_tpu_torch.curve import tcurve
+from lasso_tpu_torch.field.tfield import TFr
 from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
 from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
                                          SparsePolynomialEvaluationProof)
 from lasso_tpu_torch.ops import field_cuda, msm
+from lasso_tpu_torch.subprotocols.grand_product import (
+    BatchedGrandProductArgument, BatchedGrandProductCircuit)
+from lasso_tpu_torch.subprotocols.sumcheck import (prove_arbitrary,
+                                                   prove_cubic_batched)
 from lasso_tpu_torch.subtables.base import get_strategy
 from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
 from lasso_tpu_torch.transcript.random_tape import RandomTape
@@ -77,24 +87,28 @@ GOLDEN = {
 }
 
 
-def _check_golden(name):
+def _check_golden(name, monkeypatch):
+    """The golden's bytes and verify, on the host transcript and then on
+    the device-resident one."""
     with open(FIXTURES) as f:
         golden = json.load(f)[name]
-    proof, commitment, r, gens = _prove(*GOLDEN[name])
-    assert _entry(proof, commitment) == golden
-    proof.verify(commitment, r, gens, ProofTranscript(b"example"))
+    for route in ("0", "force"):
+        monkeypatch.setenv("LASSO_TPU_DEVICE_TRANSCRIPT", route)
+        proof, commitment, r, gens = _prove(*GOLDEN[name])
+        assert _entry(proof, commitment) == golden, route
+        proof.verify(commitment, r, gens, ProofTranscript(b"example"))
 
 
 @pytest.mark.parametrize("name", ["and_4d", "or_4d", "xor_4d"])
-def test_golden_proof_bytes_and_verify(name):
-    _check_golden(name)
+def test_golden_proof_bytes_and_verify(name, monkeypatch):
+    _check_golden(name, monkeypatch)
 
 
-def test_lt_and_range_golden_proof_bytes_and_verify():
+def test_lt_and_range_golden_proof_bytes_and_verify(monkeypatch):
     """The LT and range-check goldens as one test item: the tier-1 suite
     keeps its item count (ROADMAP.md, ground rules)."""
     for name in ("lt_4d", "lt_4d_big_s", "range_3d"):
-        _check_golden(name)
+        _check_golden(name, monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +147,46 @@ def test_tampered_deref_eval_rejected(and_proof):
         evals[:] = saved
 
 
+def _sumcheck_runs(route, monkeypatch):
+    """prove_arbitrary (AND, C=2, M=16, 5 rounds), prove_cubic_batched and
+    BatchedGrandProductArgument.prove on [2, 256] leaves, each entered
+    after a scalar append (away from the post-challenge position), each
+    followed by a challenge that pins the final transcript state."""
+    monkeypatch.setenv("LASSO_TPU_DEVICE_TRANSCRIPT", route)
+    rng = np.random.default_rng(7)
+    strategy = get_strategy("and", 2, 16)
+    zs = TFr.encode_u64_array(rng.integers(
+        1, 1 << 30, size=(strategy.num_memories + 1, 32)).astype(np.uint64),
+        "cpu")
+    tr = ProofTranscript(b"sumcheck-parity")
+    tr.append_scalar(b"claim", 0x1234)
+    proof, r, finals, _ = prove_arbitrary(
+        zs, strategy.comb_eq_device(), strategy.sumcheck_poly_degree(), 5, tr)
+    out = [[p.coeffs_except_linear_term for p in proof.compressed_polys], r,
+           finals, tr.challenge_scalar(b"post")]
+
+    a, b = (TFr.encode_u64_array(rng.integers(
+        1, 1 << 30, size=(3, 16)).astype(np.uint64), "cpu") for _ in "ab")
+    c = TFr.encode_u64_array(rng.integers(1, 1 << 30, size=16).astype(
+        np.uint64), "cpu")
+    tr = ProofTranscript(b"cubic-parity")
+    tr.append_scalar(b"claim", 0x9876)
+    proof, r, claims = prove_cubic_batched(0x5555, 4, a, b, c, [3, 5, 7], tr)
+    out += [[p.coeffs_except_linear_term for p in proof.compressed_polys], r,
+            claims, tr.challenge_scalar(b"post")]
+
+    leaves = TFr.encode_u64_array(np.random.default_rng(3).integers(
+        1, 1 << 30, size=(2, 256)).astype(np.uint64), "cpu")
+    tr = ProofTranscript(b"gp")
+    tr.append_scalar(b"claim", 0xABC)
+    arg, rand = BatchedGrandProductArgument.prove(
+        BatchedGrandProductCircuit(leaves), tr)
+    out += [[(ly.claims_prod_left, ly.claims_prod_right,
+              [p.coeffs_except_linear_term for p in ly.proof.compressed_polys])
+             for ly in arg.proof], rand, tr.challenge_scalar(b"post")]
+    return out, arg, leaves
+
+
 def test_device_msm_route_matches_host_route(monkeypatch):
     """AND, C=1, M=2^12, s=2^11: every Hyrax commit exceeds the host-routing
     threshold, so the default run commits through the device MSM (K3's
@@ -140,7 +194,20 @@ def test_device_msm_route_matches_host_route(monkeypatch):
     identical proof and commitment bytes, and so must the unfused curve
     configuration (LASSO_TPU_PALLAS_PADD=0: stacked limb-major products,
     K2's plain version here): every MSM result leaves the device as a
-    canonical compressed point."""
+    canonical compressed point.  Likewise the device-transcript route of
+    the sumcheck and grand-product provers gives the host route's proofs,
+    challenges and final transcript state, and the host verifier accepts
+    its grand-product argument."""
+    host_out, _, _ = _sumcheck_runs("0", monkeypatch)
+    device_out, arg, leaves = _sumcheck_runs("force", monkeypatch)
+    assert device_out == host_out
+    tr = ProofTranscript(b"gp")
+    tr.append_scalar(b"claim", 0xABC)
+    _, rand = arg.verify(BatchedGrandProductCircuit(leaves).evaluate(), 256,
+                         tr)
+    assert rand == host_out[-2]
+    monkeypatch.delenv("LASSO_TPU_DEVICE_TRANSCRIPT")
+
     proof, commitment, r, gens = _prove("and", 1, 1 << 12, 1 << 11)
     via_device = _entry(proof, commitment)
     proof.verify(commitment, r, gens, ProofTranscript(b"example"))

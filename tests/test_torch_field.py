@@ -22,10 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+from lasso_tpu_torch.field import tfield
 from lasso_tpu_torch.field.tfield import TFp, TFr
 from lasso_tpu_torch.interop import (limb_major_from_numpy, limbs_from_numpy,
                                      to_numpy)
 from lasso_tpu_torch.ops import field_cuda
+from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
+                                                      keccak_f1600_plain,
+                                                      keccak_f1600_state)
+from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
+from lasso_tpu_torch.utils import keccak as host_keccak
 
 # small tensors: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores
@@ -136,18 +142,28 @@ out["sum3"] = np.asarray(jf.sum(ja.reshape(16, 4, 16)))
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
 def test_inverse_and_conversions_match_jax(name, tmp_path):
+    """Inversion and the conversions; for Fr also the device-resident
+    transcript (keccak-f[1600] and DeviceTranscript, which turns bytes into
+    scalars and back) against JAX's and the host transcript, in the same
+    JAX process."""
     tf, a, b, ta, _ = _pair(name, seed=9)
     u64 = np.random.default_rng(3).integers(0, 2**63, size=N, dtype=np.uint64)
     wide = to_numpy(ta).copy()
     wide[:, 15] = 0xFFFF  # values below 2^256, not reduced
-    ref = jax_reference(_JFIELD + """
+    script = _JFIELD + """
 out["inv"] = np.asarray(jf.inv_device(ja[3:8]))
 out["ints"] = np.asarray(jf.to_int_limbs(ja))
 out["scalar"] = np.asarray(jf.encode_scalar(a[5]))
 out["u64"] = np.asarray(jf.encode_u64_array(inp["u64"]))
 out["canon"] = np.asarray(jf.canon_wide(inp["wide"]))
 out["decoded"] = np.array([str(v) for v in jf.decode(ja)])
-""", tmp_path, field=name, a=_strs(a), b=_strs(b), u64=u64, wide=wide)
+"""
+    extra = {}
+    if name == "Fr":
+        script += _JAX_TRANSCRIPT
+        extra = _transcript_inputs(a)
+    ref = jax_reference(script, tmp_path, field=name, a=_strs(a), b=_strs(b),
+                        u64=u64, wide=wide, **extra)
     _eq(ta, ref["a"])
     _eq(tf.inv_device(ta[3:8]), ref["inv"])
     _eq(tf.to_int_limbs(ta), ref["ints"])
@@ -155,6 +171,86 @@ out["decoded"] = np.array([str(v) for v in jf.decode(ja)])
     assert tf.decode(ta) == [int(v) for v in ref["decoded"]] == a
     _eq(tf.encode_u64_array(u64, "cpu"), ref["u64"])
     _eq(tf.canon_wide(limbs_from_numpy(wide, "cpu")), ref["canon"])
+    if name == "Fr":
+        _check_transcript(a, extra, ref)
+
+
+# The device transcript's script, run by the port, the JAX package and the
+# host transcript from the same entry position: a scalar append leaves the
+# sponge away from the position after a challenge.
+_JAX_TRANSCRIPT = """
+import jax
+import jax.numpy as jnp
+from lasso_tpu.transcript.device_strobe import (DeviceTranscript,
+                                                keccak_f1600_state)
+from lasso_tpu.transcript.proof_transcript import ProofTranscript
+out["keccak"] = np.asarray(jax.jit(jax.vmap(keccak_f1600_state))(
+    jnp.asarray(inp["states"].astype(np.uint32))))
+tr = ProofTranscript(b"device-transcript")
+tr.append_scalar(b"claim", 0x1234)
+dt = DeviceTranscript.from_host(tr)
+dt.append_scalar(b"s", ja[0])
+dt.append_scalars(b"v", ja[1:6])
+dt.append_point_bytes(b"P", jnp.asarray(inp["point"].astype(np.uint32)))
+dt.append_message_static(b"m", inp["message"].tobytes())
+c1 = dt.challenge_scalar(b"c1")
+dt.append_scalar(b"t", ja[6])
+c2 = dt.challenge_scalar(b"c2")
+out["challenges"] = np.asarray(jnp.stack([c1, c2]))
+out["state"] = np.asarray(dt.state_tuple())
+out["meta"] = np.array([dt.s.pos, dt.s.pos_begin, dt.s.cur_flags])
+"""
+
+
+def _transcript_inputs(a):
+    from lasso_tpu_torch.curve.host import GENERATOR
+
+    rng = np.random.default_rng(23)
+    states = rng.integers(0, 256, size=(8, 200)).astype(np.uint8)
+    states[0] = 0
+    point = np.frombuffer(GENERATOR.mul(a[7]).to_compressed_bytes(), np.uint8)
+    message = rng.integers(0, 256, size=300).astype(np.uint8)  # > STROBE_R
+    return {"states": states, "point": point, "message": message}
+
+
+def _check_transcript(a, inp, ref):
+    """keccak_f1600_plain against JAX's keccak_f1600_state and the host
+    keccak; the port's DeviceTranscript against JAX's and against the host
+    ProofTranscript: both challenges, the final state and its position."""
+    states = torch.as_tensor(inp["states"].astype(np.int32))
+    got = keccak_f1600_plain(states)
+    _eq(got, ref["keccak"])
+    for row, out_row in zip(inp["states"], got):
+        host = bytearray(row.tobytes())
+        host_keccak.keccak_f1600(host)
+        assert bytes(out_row.numpy().astype(np.uint8)) == bytes(host)
+
+    host = ProofTranscript(b"device-transcript")
+    host.append_scalar(b"claim", 0x1234)
+    dt = DeviceTranscript.from_host(host, "cpu")
+    scalars = TFr.encode_ints(a[:7], "cpu")
+    dt.append_scalar(b"s", scalars[0])
+    dt.append_scalars(b"v", scalars[1:6])
+    dt.append_point_bytes(b"P", torch.as_tensor(inp["point"].astype(np.int32)))
+    dt.append_message_static(b"m", inp["message"].tobytes())
+    c1 = dt.challenge_scalar(b"c1")
+    dt.append_scalar(b"t", scalars[6])
+    c2 = dt.challenge_scalar(b"c2")
+    _eq(torch.stack([c1, c2]), ref["challenges"])
+    _eq(dt.state, ref["state"])
+    assert list(dt.meta()) == ref["meta"].tolist()
+
+    host.append_scalar(b"s", a[0])
+    host.append_scalars(b"v", a[1:6])
+    host.append_message(b"P", inp["point"].tobytes())
+    host.append_message(b"m", inp["message"].tobytes())
+    h1 = host.challenge_scalar(b"c1")
+    host.append_scalar(b"t", a[6])
+    h2 = host.challenge_scalar(b"c2")
+    assert TFr.decode(torch.stack([c1, c2])) == [h1, h2]
+    st = host.t.strobe
+    assert bytes(dt.state.numpy().astype(np.uint8)) == bytes(st.state)
+    assert dt.meta() == (st.pos, st.pos_begin, st.cur_flags)
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
@@ -197,9 +293,9 @@ if jf is JFp:
 
 
 def test_dispatch_uses_plain_version_on_cpu():
-    """K1's and K2's dispatchers take the plain version for CPU tensors (no
-    launch; K2's broadcasts leading axes); the kernel wrappers take CUDA
-    tensors only."""
+    """K1's, K2's and K4's dispatchers take the plain version for CPU
+    tensors (no launch; K2's broadcasts leading axes); the kernel wrappers
+    take CUDA tensors only."""
     _, _, _, ta, tb = _pair("Fr", seed=13)
     before = dict(field_cuda.launch_counts)
     out = field_cuda.mont_mul(ta, tb, "Fr")
@@ -207,6 +303,17 @@ def test_dispatch_uses_plain_version_on_cpu():
     assert torch.equal(out, field_cuda.mont_mul_plain(ta, tb, "Fr"))
     with pytest.raises(ValueError):
         field_cuda.mont_mul_cuda(ta, tb, "Fr")  # the kernel takes CUDA only
+    # up to SMALL_PRODUCTS products take Python ints, more the limb
+    # arithmetic: the same limbs either way, whole or broadcast
+    few = tfield.SMALL_PRODUCTS
+    assert ta.shape[0] > few
+    for name in ("Fr", "Fp"):
+        _, _, _, xa, xb = _pair(name, seed=23)
+        full = field_cuda.mont_mul_plain(xa, xb, name)
+        assert torch.equal(
+            field_cuda.mont_mul_plain(xa[:few], xb[:few], name), full[:few])
+        assert torch.equal(field_cuda.mont_mul_plain(xa[:3], xb[7], name),
+                           field_cuda.mont_mul_plain(xa, xb[7], name)[:3])
 
     _, _, _, ta, tb = _pair("Fp", seed=17)
     lm_a = ta.T.reshape(16, 4, 16).movedim(1, 0)  # [4, 16, 16] limb-major
@@ -233,6 +340,14 @@ def test_dispatch_uses_plain_version_on_cpu():
     with pytest.raises(ValueError):
         field_cuda.mont_mul_lm_cuda(st_a[0], const, "Fp")
 
+    states = torch.as_tensor(np.random.default_rng(19).integers(
+        0, 256, size=(3, 200)).astype(np.int32))
+    out = keccak_f1600_state(states)
+    assert field_cuda.launch_counts == before
+    assert torch.equal(out, keccak_f1600_plain(states))
+    with pytest.raises(ValueError):
+        field_cuda.keccak_cuda(states)
+
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels' arithmetic header, built for the host
@@ -243,6 +358,31 @@ _SHIM = r"""
 #include <cstring>
 #include <vector>
 #include "field256.cuh"
+#include "keccak.cuh"
+// K4's warp simulated lane by lane: each exchange reads what all 32 lanes
+// held at that step, from the source lanes keccak::lane_map gives.
+extern "C" void h_keccak(int32_t* state) {
+  using namespace keccak;
+  uint64_t a[32], c[32], b[32], rc[32];
+  LaneMap m[32];
+  for (int t = 0; t < 32; ++t) {
+    const int l = t < kLanes ? t : 0;
+    m[t] = lane_map(l);
+    a[t] = load_lane(state, l);
+    rc[t] = round_constant(t < kRounds ? t : 0);
+  }
+  for (int r = 0; r < kRounds; ++r) {
+    for (int t = 0; t < 32; ++t) {
+      c[t] = a[m[t].column[0]];
+      for (int k = 1; k < 5; ++k) c[t] ^= a[m[t].column[k]];
+    }
+    for (int t = 0; t < 32; ++t) a[t] ^= theta_d(c[m[t].c_prev], c[m[t].c_next]);
+    for (int t = 0; t < 32; ++t) b[t] = rotl(a[m[t].pi_src], m[t].pi_rot);
+    for (int t = 0; t < 32; ++t) a[t] = chi(b[t], b[m[t].chi1], b[m[t].chi2]);
+    a[0] ^= rc[r];
+  }
+  for (int t = 0; t < kLanes; ++t) store_lane(state, t, a[t]);
+}
 extern "C" void h_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
                            int64_t n, int field) {
   const f256::Modulus m = field == 0 ? f256::fr_modulus() : f256::fp_modulus();
@@ -364,6 +504,7 @@ def header_lib(tmp_path_factory):
     lib.h_lm_launch.argtypes = [i64, i64, i32, i32, i32, i32, vp]
     lib.h_mont_mul_lm.argtypes = [vp, vp, vp, i64, i64, i32, i32, i32, i32,
                                   i32]
+    lib.h_keccak.argtypes = [vp]
     return lib
 
 
@@ -445,7 +586,9 @@ def test_cuda_header_mont_mul_matches_plain(header_lib, name):
 def test_cuda_header_padd_matches_plain(header_lib):
     """K3's formula as the kernel splits it over a pair of lanes
     (padd_pair_first/second, with the small-constant product), run lane by
-    lane through padd_point, against the plain version and the host."""
+    lane through padd_point, against the plain version and the host; and
+    K4's lane arithmetic (csrc/keccak.cuh) as its warp runs it, against
+    the host keccak and the plain version."""
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point
 
@@ -460,3 +603,15 @@ def test_cuda_header_padd_matches_plain(header_lib):
     want = field_cuda.padd_plain(p, q)
     assert torch.equal(out, want)
     assert tcurve.to_host_points(out) == [a.add(b) for a, b in zip(p_host, q_host)]
+
+    states = np.random.default_rng(41).integers(0, 256, size=(24, 200))
+    states[0] = 0
+    states = torch.as_tensor(states.astype(np.int32))
+    got = states.clone()
+    for row in got:
+        header_lib.h_keccak(row.data_ptr())
+    assert torch.equal(got, keccak_f1600_plain(states))
+    for row, out_row in zip(states, got):
+        ref = bytearray(row.numpy().astype(np.uint8).tobytes())
+        host_keccak.keccak_f1600(ref)
+        assert bytes(out_row.numpy().astype(np.uint8)) == bytes(ref)

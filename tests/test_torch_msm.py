@@ -140,7 +140,9 @@ out["d"] = np.asarray(jmsm._extract_digits(
 
 def test_bucket_reductions_match_host():
     """Blocked segmented sums and blocked weighted sums (both above their
-    block thresholds) against direct host sums."""
+    block thresholds) against direct host sums; the segmented scan alone,
+    stopping early and at all of its strides (the flat MSM's sync-free
+    form on a card), likewise."""
     rng = np.random.default_rng(5)
     n, num_buckets = 300, 200
     pts = _points(n)
@@ -154,6 +156,11 @@ def test_bucket_reductions_match_host():
             want[b] = want[b].add(p)
     got = tcurve.to_host_points(buckets)
     assert [_compressed(p) for p in got] == [_compressed(p) for p in want]
+    for fixed in (False, True):
+        scanned = msm._segmented_sum_sorted(
+            dev_pts, torch.as_tensor(ids), num_buckets, fixed)
+        assert [_compressed(p) for p in tcurve.to_host_points(
+            scanned[..., :num_buckets])] == [_compressed(p) for p in want]
 
     weighted = msm._bucket_weighted_sum_blocked(buckets)
     total = msm_host(want, list(range(1, num_buckets + 1)))

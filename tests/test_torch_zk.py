@@ -3,7 +3,8 @@ tests/test_zk_serialize.py; reference: zk.rs:310-400, sumcheck.rs:331-448
 and the CanonicalSerialize derives), on the CPU.
 
 The Sigma protocols round-trip and their proofs equal the JAX package's
-for the same inputs; the ZK sumcheck verifier accepts an honest proof and
+for the same inputs; the log-size dot-product proof gives the same proof
+with the transcript on the device as on the host; the ZK sumcheck verifier accepts an honest proof and
 rejects a tampered one; a golden proof survives serialize -> deserialize
 -> verify -> serialize byte for byte.  All comparisons are exact.  The JAX
 side runs in a fresh process with its compile cache off.
@@ -30,6 +31,7 @@ from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
 from lasso_tpu_torch.poly.commitments import MultiCommitGens, commit_scalar
 from lasso_tpu_torch.subprotocols.dot_product import (DotProductProof,
                                                       DotProductProofGens,
+                                                      DotProductProofLog,
                                                       batch_commit)
 from lasso_tpu_torch.subprotocols.sumcheck import ZKSumcheckInstanceProof
 from lasso_tpu_torch.subprotocols.zk import (EqualityProof, KnowledgeProof,
@@ -243,9 +245,42 @@ def _check_proof_serialization_roundtrip():
         p3.verify(commitment2, r, gens, ProofTranscript(b"example"))
 
 
-def test_zk_pieces_and_serialization(tmp_path):
+def _dppl_run(route, monkeypatch, gens, x, a, y):
+    monkeypatch.setenv("LASSO_TPU_DEVICE_TRANSCRIPT", route)
+    tr = ProofTranscript(b"dppl-parity")
+    tr.append_scalar(b"claim", 0xABCDEF)  # away from the post-challenge spot
+    proof, cx, cy = DotProductProofLog.prove(
+        gens, tr, RandomTape(b"proof"), TFr.encode_ints(x, "cpu"), 7,
+        TFr.encode_ints(a, "cpu"), y, 9)
+    bullet = proof.bullet_reduction_proof
+    pts = bullet.L_vec + bullet.R_vec + [proof.delta, proof.beta, cx, cy]
+    return ([p.to_compressed_bytes() for p in pts], proof.z1, proof.z2,
+            tr.challenge_scalar(b"post")), (proof, cx, cy)
+
+
+def _check_dppl_device_matches_host(monkeypatch):
+    """DotProductProofLog at N=8 on the device-transcript route (the fused
+    program of subprotocols/bullet._device_dppl) against the host route:
+    every proof point and scalar and the final transcript state; the host
+    verifier accepts the fused proof."""
+    n = 8
+    x = [(0x9E3779B9 * (i + 1)) % Fr.p for i in range(n)]
+    a = [(0x61C88647 * (i + 3)) % Fr.p for i in range(n)]
+    y = sum(p * q for p, q in zip(x, a)) % Fr.p
+    gens = DotProductProofGens.new(n, b"test-dppl-fused")
+    host, _ = _dppl_run("0", monkeypatch, gens, x, a, y)
+    device, (proof, cx, cy) = _dppl_run("force", monkeypatch, gens, x, a, y)
+    assert device == host
+    monkeypatch.delenv("LASSO_TPU_DEVICE_TRANSCRIPT")
+    tr = ProofTranscript(b"dppl-parity")
+    tr.append_scalar(b"claim", 0xABCDEF)
+    proof.verify(n, gens, tr, a, cx, cy, "cpu")
+
+
+def test_zk_pieces_and_serialization(tmp_path, monkeypatch):
     """Every check of this module as one test item: the tier-1 suite keeps
     its item count (ROADMAP.md, ground rules)."""
+    _check_dppl_device_matches_host(monkeypatch)
     _check_knowledge_proof_roundtrip()
     _check_equality_proof_roundtrip()
     _check_product_proof_roundtrip()
