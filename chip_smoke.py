@@ -52,7 +52,17 @@ Phases, in order; each prints one line and any failure exits non-zero:
      here runs its device-transcript rounds (the sumcheck, grand-product
      and fused opening-proof paths) under
      torch.cuda.set_sync_debug_mode("error"): a host sync inside them fails
-     the run.  Then the `kernels` JSON line, the card line, and the final
+     the run;
+ 11. the multi-device prover (prove(..., mesh=), lasso_tpu_torch/parallel):
+     the flagship proven as ranks spawned on the card, (a) one NCCL rank
+     and (b) four gloo ranks sharing it, each rank densifying, committing
+     and proving twice (the second timed); every rank's proof and
+     commitment bytes must equal phase 5's, rank 0's single-device verify
+     must accept, and every rank's prove must launch K1, K3 and K4.  Each
+     rank's peak device memory is printed twice: from its densify on
+     (every rank densifies the whole instance) and from its shard's commit
+     on.  Four ranks on one card check correctness and per-rank dispatch,
+     not scaling.  Then the `kernels` JSON line, the card line, and the final
      status line.
 
 Phases 4, 5 and 8 run on the device transcript route, the default on a
@@ -995,6 +1005,52 @@ def main() -> int:
     k4_launches = {f"{cfg}_device_prove": route_runs[cfg][1][2]["keccak"]
                    for cfg in route_runs}
 
+    # -- 11. the multi-device prover: the flagship as ranks on the card -------
+    from lasso_tpu_torch.entry import Spec, prove_instances
+    from lasso_tpu_torch.parallel.launch import spawn
+
+    want = (pb, serialize_commitment(flagship_public[0]))  # phase 5's bytes
+    del dense, gens, flagship_prove
+    torch.cuda.empty_cache()
+    sharded_launches = {}
+    for label, ranks, backend in (("nccl_1rank", 1, "nccl"),
+                                  ("gloo_4ranks", 4, "gloo")):
+        t0 = time.perf_counter()
+        results = spawn(prove_instances, ranks, backend, "cuda:0",
+                        [Spec("and", 1, 1 << log_m, 1 << log_s)], 2)
+        spawn_s = time.perf_counter() - t0
+        per_rank = []
+        for rank, (res,) in enumerate(results):
+            if (res["proof"], res["commitment"]) != want:
+                fail(f"phase 11 {label}: rank {rank}'s proof or commitment "
+                     "bytes differ from phase 5's")
+            if min(res["launches"][k] for k in ("mont_mul", "padd",
+                                                "keccak")) <= 0:
+                fail(f"phase 11 {label}: rank {rank} launches "
+                     f"{res['launches']}")
+            per_rank.append({
+                "rank": rank, "commit_s": round(res["commit_s"], 3),
+                "prove_s": [round(t, 3) for t in res["prove_s"]],
+                "launches": res["launches"],
+                "peak_mem_gib": round(res["peak_mem_bytes"] / 2**30, 3),
+                "shard_peak_mem_gib": round(
+                    res["shard_peak_mem_bytes"] / 2**30, 3)})
+        if not results[0][0]["verified"]:
+            fail(f"phase 11 {label}: rank 0 did not verify")
+        for k in ("mont_mul", "padd", "keccak"):
+            sharded_launches.setdefault(k, {})[
+                f"flagship_sharded_{label}_prove_per_rank"] = [
+                    r["launches"][k] for r in per_rank]
+        print(f"phase 11 [{elapsed()}] flagship sharded {label} "
+              f"(backend={backend}, ranks={ranks}, all on cuda:0): "
+              f"spawn_s={spawn_s:.1f} proof_sha256="
+              f"{hashlib.sha256(results[0][0]['proof']).hexdigest()} "
+              "proof+commitment bytes == phase 5's on every rank, "
+              f"verify=accepted (rank 0) per_rank={json.dumps(per_rank)}",
+              flush=True)
+    print(f"phase 11 [{elapsed()}] card: {card_line()} (ranks sharing one "
+          "card: correctness and per-rank dispatch, not scaling)", flush=True)
+
     def kernel_row(name, source, replaces, launches, err, main, by_path):
         """The kernels line's entry: the contract's keys at the main path's
         shape ("ms" is the kernel's device time per launch there), then
@@ -1013,7 +1069,8 @@ def main() -> int:
                    "lasso_tpu/ops/field_pallas.py:95",
                    prove_counts["mont_mul"], k1["max_abs_err"], k1_main,
                    {"flagship_prove": prove_counts["mont_mul"],
-                    "jolt_demo_fused_prove": jd_counts["mont_mul"]}),
+                    "jolt_demo_fused_prove": jd_counts["mont_mul"],
+                    **sharded_launches["mont_mul"]}),
         kernel_row("mont_mul_lm (K2)", "lasso_tpu_torch/csrc/mont_mul_lm.cu",
                    "lasso_tpu/ops/field_pallas.py:112",
                    cli_counts["mont_mul_lm"], max(k2["max_abs_err"], err2),
@@ -1024,14 +1081,15 @@ def main() -> int:
                    "lasso_tpu/ops/field_pallas.py:234",
                    prove_counts["padd"], k3_err, k3_main,
                    {"flagship_prove": prove_counts["padd"],
-                    "jolt_demo_fused_prove": jd_counts["padd"]}),
+                    "jolt_demo_fused_prove": jd_counts["padd"],
+                    **sharded_launches["padd"]}),
         kernel_row("keccak (K4)", "lasso_tpu_torch/csrc/keccak.cu",
                    "lasso_tpu/transcript/device_strobe.py:78",
                    prove_counts["keccak"], k4_err, k4_main,
                    {"flagship_prove": prove_counts["keccak"],
                     "jolt_demo_fused_prove": jd_counts["keccak"],
                     "jolt_demo_unfused_cli_pass": cli_counts["keccak"],
-                    **k4_launches}),
+                    **k4_launches, **sharded_launches["keccak"]}),
     ]}
     kernels["kernels"][-1]["latency_bound_ms"] = k4_main["latency_bound_ms"]
     print(json.dumps(kernels), flush=True)

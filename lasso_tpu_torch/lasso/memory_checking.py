@@ -18,14 +18,14 @@ import torch
 
 from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr
-from lasso_tpu_torch.poly.dense import bound_var_bot_host, eq_evals_device
+from lasso_tpu_torch.poly.dense import bound_var_bot_host, eq_table
 from lasso_tpu_torch.poly.hyrax import PolyEvalProof
 from lasso_tpu_torch.poly.identity import identity_poly_evaluate
 from lasso_tpu_torch.subprotocols.grand_product import (
-    BatchedGrandProductArgument, BatchedGrandProductCircuit)
+    BatchedGrandProductArgument, BatchedGrandProductCircuit,
+    ShardedBatchedGPCircuit)
 from lasso_tpu_torch.subtables.container import (CombinedTableEvalProof,
-                                                 _rows_view,
-                                                 _weighted_evals_kernel)
+                                                 _rows_view, weighted_evals)
 from lasso_tpu_torch.utils.errors import LassoError
 from lasso_tpu_torch.utils.tracing import instrument, span
 
@@ -75,36 +75,45 @@ def _if_leaves_kernel(flat_m, table_vals, addr, g, g2, t, dim_of: tuple,
     return _interleave(init_f, final_f)
 
 
-def build_grand_product_batches(dense, subtables, r_mem_check):
+def build_grand_product_batches(dense, subtables, r_mem_check, mesh=None):
     """Fingerprint inputs for all memories.
 
     Returns (read_write_circuits, init_final_circuits): batched circuits with
     instances interleaved [read_0, write_0, read_1, ...] and
     [init_0, final_0, init_1, ...] (reference: memory_checking.rs:707-722).
+    With a mesh, the leaves are this rank's cyclic shards (D | s and D | M,
+    so a merged shard is the per-polynomial shards one after the other) and
+    the circuits ShardedBatchedGPCircuits.
     """
     strategy = subtables.strategy
     device = dense.device
+    d, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    s, m = dense.s // d, dense.m // d  # this rank's extents
     gamma, tau = r_mem_check
     g = TFr.encode_scalar(gamma, device)
     g2 = TFr.encode_scalar(gamma * gamma % Fr.p, device)
     t = TFr.encode_scalar(tau, device)
 
     alpha = strategy.num_memories
-    m = dense.m
     dim_of = tuple(strategy.memory_to_dimension_index(i) for i in range(alpha))
     sub_of = tuple(strategy.memory_to_subtable_index(i) for i in range(alpha))
 
-    addr = TFr.encode_u64_array(np.arange(m, dtype=np.uint64), device)  # [M, W]
+    addr = TFr.encode_u64_array(
+        np.arange(rank, dense.m, d, dtype=np.uint64), device)  # [M/D, W]
+    table_vals = subtables.table_vals[:, rank::d]
 
     def rw_leaves(half=None):
         return _rw_leaves_kernel(
             dense.combined_l_variate_polys.z, subtables.combined_poly.z,
-            g, g2, t, dim_of, dense.c, dense.s, half)
+            g, g2, t, dim_of, dense.c, s, half)
 
     if_leaves = _if_leaves_kernel(
-        dense.combined_log_m_variate_polys.z, subtables.table_vals, addr,
+        dense.combined_log_m_variate_polys.z, table_vals, addr,
         g, g2, t, dim_of, sub_of, dense.c, m)
 
+    if mesh is not None:
+        return (ShardedBatchedGPCircuit(mesh, rw_leaves()),
+                ShardedBatchedGPCircuit(mesh, if_leaves))
     if 2 * alpha * dense.s >= GP_RECOMPUTE_MIN:
         rw = BatchedGrandProductCircuit(
             leaves_fn=rw_leaves, shape=(2 * alpha, dense.s))
@@ -199,15 +208,14 @@ class HashLayerProof:
 
     @staticmethod
     @instrument("MemoryChecking.HashLayer.prove")
-    def prove(rand_mem, rand_ops, dense, subtables, gens, transcript, random_tape):
+    def prove(rand_mem, rand_ops, dense, subtables, gens, transcript,
+              random_tape, mesh=None):
         transcript.append_protocol_name(HashLayerProof.PROTOCOL_NAME)
         device = dense.device
 
         with span("HashLayer.eq_tables"):
-            chis_ops = eq_evals_device(
-                [TFr.encode_scalar(x, device) for x in rand_ops], device)
-            chis_mem = eq_evals_device(
-                [TFr.encode_scalar(x, device) for x in rand_mem], device)
+            chis_ops = eq_table(rand_ops, device, mesh)
+            chis_mem = eq_table(rand_mem, device, mesh)
 
         # decommit E_i at rand_ops
         with span("HashLayer.eval_derefs"):
@@ -218,11 +226,11 @@ class HashLayerProof:
 
         c = dense.c
         with span("HashLayer.stack_evals"):
-            dim_read_evals = TFr.decode(_weighted_evals_kernel(
-                dense.combined_l_variate_polys.z, chis_ops, 2 * c, dense.s))
+            dim_read_evals = TFr.decode(weighted_evals(
+                dense.combined_l_variate_polys.z, chis_ops, 2 * c, mesh))
             eval_dim, eval_read = dim_read_evals[:c], dim_read_evals[c:]
-            eval_final = TFr.decode(_weighted_evals_kernel(
-                dense.combined_log_m_variate_polys.z, chis_mem, c, dense.m))
+            eval_final = TFr.decode(weighted_evals(
+                dense.combined_log_m_variate_polys.z, chis_mem, c, mesh))
             del chis_ops, chis_mem
 
         with span("HashLayer.fold_ops"):
@@ -344,15 +352,20 @@ class MemoryCheckingProof:
 
     @staticmethod
     @instrument("MemoryChecking.prove")
-    def prove(dense, r_mem_check, subtables, gens, transcript, random_tape):
+    def prove(dense, r_mem_check, subtables, gens, transcript, random_tape,
+              mesh=None):
+        """With a mesh, dense and subtables are this rank's shards
+        (parallel/sharded.py); the proof is the same."""
         transcript.append_protocol_name(MemoryCheckingProof.PROTOCOL_NAME)
 
-        rw, inf = build_grand_product_batches(dense, subtables, r_mem_check)
+        rw, inf = build_grand_product_batches(dense, subtables, r_mem_check,
+                                              mesh)
         proof_prod_layer, rand_mem, rand_ops = ProductLayerProof.prove(
             rw, inf, transcript)
 
         proof_hash_layer = HashLayerProof.prove(
-            rand_mem, rand_ops, dense, subtables, gens, transcript, random_tape)
+            rand_mem, rand_ops, dense, subtables, gens, transcript,
+            random_tape, mesh)
 
         return MemoryCheckingProof(proof_prod_layer, proof_hash_layer)
 

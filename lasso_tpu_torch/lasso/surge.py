@@ -5,7 +5,8 @@ Flow (prove): commit lookups E_i -> primary sumcheck over
 sum_k eq(r,k) * g(E_1[k]..E_alpha[k]) -> combined opening of E_i(r_z) ->
 memory checking.  The hypercube-sized stages run on the dense
 representation's device (the card unless the caller asked for the CPU);
-the Fiat-Shamir transcript runs on the host.
+the Fiat-Shamir transcript runs on the host.  With a mesh, the same prove
+runs sharded over its ranks (parallel/), with the same proof bytes.
 """
 
 from __future__ import annotations
@@ -15,31 +16,25 @@ from dataclasses import dataclass
 import torch
 
 from lasso_tpu_torch.field.host import Fr
-from lasso_tpu_torch.field.tfield import TFr
 from lasso_tpu_torch.lasso.densified import (DensifiedRepresentation,
                                              SparsePolynomialCommitment,
                                              resolve_device)
 from lasso_tpu_torch.lasso.memory_checking import MemoryCheckingProof
 from lasso_tpu_torch.poly.deferred import DeferredOpeningChecks
-from lasso_tpu_torch.poly.dense import eq_evals_device, eq_evaluate_host
+from lasso_tpu_torch.poly.dense import eq_evaluate_host, eq_table
 from lasso_tpu_torch.poly.hyrax import PolyCommitmentGens
 from lasso_tpu_torch.subprotocols.sumcheck import (SumcheckInstanceProof,
                                                    prove_arbitrary)
 from lasso_tpu_torch.subtables.base import HostOps, SubtableStrategy
 from lasso_tpu_torch.subtables.container import (CombinedTableCommitment,
                                                  CombinedTableEvalProof,
-                                                 Subtables, _rows_view)
+                                                 Subtables)
 from lasso_tpu_torch.utils.errors import InvalidInputLength, LassoError
 from lasso_tpu_torch.utils.tracing import instrument
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max((n - 1).bit_length(), 0)
-
-
-def _stack_with_eq(flat, eq_table, alpha: int, s: int):
-    """[E_1..E_alpha, eq] sumcheck stack from the flat merged lookups."""
-    return torch.cat([_rows_view(flat, alpha, s), eq_table[None]], dim=0)
 
 
 def _log2(n: int) -> int:
@@ -91,34 +86,41 @@ class SparsePolynomialEvaluationProof:
     @instrument("SparsePoly.prove")
     def prove(dense: DensifiedRepresentation, r: list[int],
               gens: SparsePolyCommitmentGens, strategy: SubtableStrategy,
-              transcript, random_tape) -> "SparsePolynomialEvaluationProof":
-        """Prove on the dense representation's device."""
+              transcript, random_tape, mesh=None
+              ) -> "SparsePolynomialEvaluationProof":
+        """Prove on the dense representation's device; with `mesh`, as one
+        rank of the multi-device prover (parallel/), whose proof bytes are
+        the same: every s- or M-sized table is this rank's cyclic shard,
+        and `dense` may be given as the rank's ShardedDensified."""
         transcript.append_protocol_name(
             SparsePolynomialEvaluationProof.PROTOCOL_NAME)
         assert len(r) == _log2(dense.s)
+        if mesh is None:
+            subtables = Subtables(strategy, dense.dim_usize, dense.s)
+        else:
+            from lasso_tpu_torch.parallel.sharded import (ShardedDensified,
+                                                          ShardedSubtables)
+            if not isinstance(dense, ShardedDensified):
+                dense = ShardedDensified(mesh, dense)
+            subtables = ShardedSubtables(mesh, strategy, dense.dim_usize,
+                                         dense.s)
         device = dense.device
-
-        subtables = Subtables(strategy, dense.dim_usize, dense.s)
 
         comm_derefs = subtables.commit(gens.gens_derefs)
         comm_derefs.append_to_transcript(b"comm_poly_row_col_ops_val", transcript)
 
-        eq_table = eq_evals_device(
-            [TFr.encode_scalar(x, device) for x in r], device)
-        claimed_eval = subtables.compute_sumcheck_claim(eq_table)
+        eq = eq_table(r, device, mesh)
+        claimed_eval = subtables.compute_sumcheck_claim(eq)
         transcript.append_scalar(b"claim_eval_scalar_product", claimed_eval)
 
-        stack = _stack_with_eq(
-            subtables.combined_poly.z, eq_table,
-            strategy.num_memories, dense.s)
-        del eq_table
+        stack = subtables.stack_with_eq(eq)
+        del eq
         sc_proof, r_z, _final_evals, _ = prove_arbitrary(
             stack, strategy.comb_eq_device(), strategy.sumcheck_poly_degree(),
-            _log2(dense.s), transcript)
+            _log2(dense.s), transcript, mesh)
         del stack
 
-        chis_z = eq_evals_device(
-            [TFr.encode_scalar(x, device) for x in r_z], device)
+        chis_z = eq_table(r_z, device, mesh)
         eval_derefs = subtables.evaluate_lookups_at(chis_z)
         del chis_z
         proof_derefs = CombinedTableEvalProof.prove(
@@ -128,7 +130,7 @@ class SparsePolynomialEvaluationProof:
         r_hash_params = transcript.challenge_vector(b"challenge_r_hash", 2)
         memory_check = MemoryCheckingProof.prove(
             dense, (r_hash_params[0], r_hash_params[1]), subtables, gens,
-            transcript, random_tape)
+            transcript, random_tape, mesh)
 
         return SparsePolynomialEvaluationProof(
             comm_derefs=comm_derefs,

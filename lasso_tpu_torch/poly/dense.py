@@ -36,6 +36,20 @@ def eq_evals_device(r_list, device) -> torch.Tensor:
     return e
 
 
+def eq_table(r: list[int], device, mesh=None) -> torch.Tensor:
+    """eq(r, .) over {0,1}^len(r) for host challenges r, on `device`; with a
+    mesh (parallel/mesh.py), this rank's cyclic shard of it."""
+    if mesh is not None:
+        return mesh.eq(r)
+    return eq_evals_device([TFr.encode_scalar(x, device) for x in r], device)
+
+
+def finish_columns(cols, mesh=None) -> torch.Tensor:
+    """Lazy column sums (TFr.sum_columns) -> canonical Montgomery elements;
+    with a mesh, the ranks' partial columns are summed first."""
+    return TFr.finish_sum(cols if mesh is None else mesh.psum(cols.contiguous()))
+
+
 class DensePolynomial:
     """Evaluations over the boolean hypercube, on a device."""
 

@@ -13,6 +13,9 @@ and the argument downloads once at its end.  The reference fuses only the
 layers that fit its fixed XLA buffers (GP_FIX_CAP) and runs the rest
 through prove_cubic_batched; the port runs every layer at its exact shape,
 with the same transcript bytes.
+
+ShardedBatchedGPCircuit is the circuit of one rank of a mesh; the same
+argument proves it, its wide layers through the sharded sumcheck.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr, W
-from lasso_tpu_torch.poly.dense import eq_evals_device, eq_evaluate_host
+from lasso_tpu_torch.poly.dense import (eq_evals_device, eq_evaluate_host,
+                                        eq_table)
 from lasso_tpu_torch.subprotocols.sumcheck import (SumcheckInstanceProof,
                                                    _cubic_rounds_device,
                                                    _device_sumcheck_supported,
@@ -124,6 +128,11 @@ class BatchedGrandProductCircuit:
         half = vals.shape[1] // 2
         return vals[:, :half] if side == 0 else vals[:, half:]
 
+    def argument_layer(self, layer_id: int):
+        """(left half, right half, mesh) of layer `layer_id` for the
+        argument: whole on this device, so no mesh."""
+        return self.left_layers[layer_id], self.right_layers[layer_id], None
+
     @property
     def left_layers(self) -> _HalfView:
         return _HalfView(self, 0)
@@ -153,6 +162,49 @@ class BatchedGrandProductCircuit:
         return TFr.decode(self.evaluate_device())
 
 
+class ShardedBatchedGPCircuit:
+    """BatchedGrandProductCircuit over cyclic-sharded leaves [I, n/D, W]
+    (one rank of a mesh, parallel/mesh.py): rank-local layers while a layer
+    is wider than the mesh (the pair (k, k + n/2) lies on one rank), then a
+    replicated top circuit over the gathered layer, at least two wide.
+    Multiplication is associative: the roots are the same."""
+
+    def __init__(self, mesh, leaves):
+        d = mesh.size
+        self.mesh = mesh
+        self.device = leaves.device
+        self.num_instances = leaves.shape[0]
+        n = leaves.shape[1] * d
+        self.num_layers = _log2(n)
+        top_width = max(d, 2)
+        self._sharded = []  # layers of global width n, n/2, ... > top_width
+        cur = leaves
+        while cur.shape[1] * d > top_width:
+            self._sharded.append(cur)
+            cur = _layer_product(cur)
+        self.top = BatchedGrandProductCircuit(mesh.gather(cur, axis=1))
+
+    def argument_layer(self, layer_id: int):
+        """(left half, right half, mesh or None): a wide layer's halves are
+        this rank's shards, the top circuit's are whole."""
+        if layer_id >= len(self._sharded):
+            return self.top.argument_layer(layer_id - len(self._sharded))
+        vals = self._sharded[layer_id]
+        half = vals.shape[1] // 2
+        return vals[:, :half], vals[:, half:], self.mesh
+
+    def evaluate(self) -> list[int]:
+        return self.top.evaluate()
+
+    def release(self) -> None:
+        self._sharded = []
+        self.top.release()
+
+
+def _log2(n: int) -> int:
+    return (n - 1).bit_length()
+
+
 @dataclass
 class LayerProofBatched:
     proof: SumcheckInstanceProof
@@ -166,11 +218,14 @@ class BatchedGrandProductArgument:
 
     @staticmethod
     @instrument("BatchedGrandProductArgument.prove")
-    def prove(circuits: BatchedGrandProductCircuit, transcript):
-        """Returns (argument, rand)."""
+    def prove(circuits, transcript):
+        """Returns (argument, rand).  `circuits` is a
+        BatchedGrandProductCircuit or a ShardedBatchedGPCircuit; the
+        argument is the same."""
         num_layers = circuits.num_layers
         device = circuits.device
-        if _device_sumcheck_supported(transcript, device):
+        if isinstance(circuits, BatchedGrandProductCircuit) and \
+                _device_sumcheck_supported(transcript, device):
             return BatchedGrandProductArgument._prove_device(circuits,
                                                              transcript)
         claims_to_verify = circuits.evaluate()
@@ -178,21 +233,18 @@ class BatchedGrandProductArgument:
         rand: list[int] = []
 
         for layer_id in range(num_layers - 1, -1, -1):
-            layer_len = 1 << (num_layers - 1 - layer_id)  # width per side
-            eq_poly = eq_evals_device(
-                [TFr.encode_scalar(x, device) for x in rand], device)
-            assert eq_poly.shape[0] == layer_len
-            num_rounds = (layer_len - 1).bit_length()
+            num_rounds = num_layers - 1 - layer_id
+            left, right, mesh = circuits.argument_layer(layer_id)
+            eq_poly = eq_table(rand, device, mesh)
+            assert eq_poly.shape[0] == left.shape[1]
 
             coeffs = transcript.challenge_vector(
                 b"rand_coeffs_next_layer", len(claims_to_verify))
             claim = sum(c * v for c, v in zip(coeffs, claims_to_verify)) % Fr.p
 
             proof, rand_prod, (claims_left, claims_right, _claim_eq) = \
-                prove_cubic_batched(
-                    claim, num_rounds, circuits.left_layers[layer_id],
-                    circuits.right_layers[layer_id], eq_poly, coeffs,
-                    transcript)
+                prove_cubic_batched(claim, num_rounds, left, right, eq_poly,
+                                    coeffs, transcript, mesh)
 
             for cl, cr in zip(claims_left, claims_right):
                 transcript.append_scalar(b"claim_prod_left", cl)

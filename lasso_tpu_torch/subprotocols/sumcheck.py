@@ -19,6 +19,12 @@ Vandermonde matrix), absorbed, and its challenge squeezed there, and the
 whole sumcheck downloads once at its end, as the reference's device path
 does.  Where the reference peels round 0 and loops the rest in one
 `fori_loop`, the port runs every round the same way in Python.
+
+Given a mesh (parallel/mesh.py), the same provers run on one rank's cyclic
+shard of the tables: the rounds run on the host transcript with the
+round sums psummed over the ranks while a rank holds more than one
+element, then the remaining rounds run on the gathered tables as above.
+The proof is the same (the reference's parallel/prover.py).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr, W, pack_int
+from lasso_tpu_torch.poly.dense import finish_columns
 from lasso_tpu_torch.poly.unipoly import (CompressedUniPoly, UniPoly,
                                           _solve_vandermonde)
 from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
@@ -40,18 +47,24 @@ from lasso_tpu_torch.utils.errors import LassoError
 from lasso_tpu_torch.utils.tracing import instrument
 
 
-def _round_evals(zs, comb, degree: int):
-    """zs: [alpha, n, W] -> [degree+1, W] sums of comb over the half-cube."""
+def _log2(n: int) -> int:
+    return (n - 1).bit_length()
+
+
+def _round_evals(zs, comb, degree: int, mesh=None):
+    """zs: [alpha, n, W] -> [degree+1, W] sums of comb over the half-cube;
+    with a mesh, zs is this rank's cyclic shard and the sums run over the
+    ranks."""
     half = zs.shape[1] // 2
     lo = zs[:, :half]
     hi = zs[:, half:]
-    evals = [TFr.sum(comb(lo)), TFr.sum(comb(hi))]
+    cols = [TFr.sum_columns(comb(lo)), TFr.sum_columns(comb(hi))]
     diff = TFr.sub(hi, lo)
     cur = hi
     for _ in range(2, degree + 1):
         cur = TFr.add(cur, diff)
-        evals.append(TFr.sum(comb(cur)))
-    return torch.stack(evals)
+        cols.append(TFr.sum_columns(comb(cur)))
+    return finish_columns(torch.stack(cols), mesh)
 
 
 def _bind_top(zs, r):
@@ -268,93 +281,87 @@ def _round_polys(vals, num_rounds: int, d1: int):
     return polys, rs
 
 
-@instrument("Sumcheck.prove")
-def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript):
-    """Arbitrary-degree sumcheck prover over stacked tables [alpha, n, W].
-
-    `comb` maps [alpha, m, W] -> [m, W].  Returns (SumcheckInstanceProof,
-    r (host ints), final_evals (host ints), bound stack)."""
-    zs = polys_stack
-    device = zs.device
-    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
-        dt = DeviceTranscript.from_host(transcript, device)
-        limbs, zs = _prove_arbitrary_device(zs, comb, degree, num_rounds, dt)
-        vals = TFr.decode(dt.finish(transcript, limbs))
-        compressed, r_out = _round_polys(vals, num_rounds, degree + 1)
-        final_evals = vals[num_rounds * (degree + 2):]
-        return SumcheckInstanceProof(compressed), r_out, final_evals, zs
-
-    compressed = []
-    r_out: list[int] = []
+def _host_rounds(zs, comb, degree: int, num_rounds: int, transcript,
+                 compressed: list, r_out: list, mesh=None):
+    """prove_arbitrary's rounds on the host transcript, appending to
+    compressed and r_out; returns the bound stack."""
     for _ in range(num_rounds):
-        evals = TFr.decode(_round_evals(zs, comb, degree))
+        evals = TFr.decode(_round_evals(zs, comb, degree, mesh))
         round_poly = UniPoly.from_evals(evals)
         round_poly.append_to_transcript(b"poly", transcript)
         r_j = transcript.challenge_scalar(b"challenge_nextround")
         r_out.append(r_j)
-        zs = _bind_top(zs, TFr.encode_scalar(r_j, device))
+        zs = _bind_top(zs, TFr.encode_scalar(r_j, zs.device))
         compressed.append(round_poly.compress())
+    return zs
 
+
+@instrument("Sumcheck.prove")
+def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript,
+                    mesh=None):
+    """Arbitrary-degree sumcheck prover over stacked tables [alpha, n, W].
+
+    `comb` maps [alpha, m, W] -> [m, W].  With a mesh (parallel/mesh.py),
+    polys_stack is this rank's cyclic shard [alpha, n/D, W]: the rounds run
+    on the shard with the host transcript, one psum each, while a rank
+    holds more than one element; the last log D rounds (the rank bits) run
+    on the gathered stack.  The proof is the same.  Returns
+    (SumcheckInstanceProof, r (host ints), final_evals (host ints), bound
+    stack)."""
+    zs = polys_stack
+    device = zs.device
+    compressed: list = []
+    r_out: list[int] = []
+    if mesh is not None:
+        sharded = min(_log2(zs.shape[1]), num_rounds)
+        zs = _host_rounds(zs, comb, degree, sharded, transcript, compressed,
+                          r_out, mesh)
+        zs = mesh.gather(zs, axis=1)
+        num_rounds -= sharded
+    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
+        dt = DeviceTranscript.from_host(transcript, device)
+        limbs, zs = _prove_arbitrary_device(zs, comb, degree, num_rounds, dt)
+        vals = TFr.decode(dt.finish(transcript, limbs))
+        polys, rs = _round_polys(vals, num_rounds, degree + 1)
+        final_evals = vals[num_rounds * (degree + 2):]
+        return (SumcheckInstanceProof(compressed + polys), r_out + rs,
+                final_evals, zs)
+
+    zs = _host_rounds(zs, comb, degree, num_rounds, transcript, compressed,
+                      r_out)
     final_evals = TFr.decode(zs[:, 0])
     return SumcheckInstanceProof(compressed), r_out, final_evals, zs
 
 
-def _cubic_round_evals(a, b, c):
+def _cubic_round_evals(a, b, c, mesh=None):
     """Batched cubic round evals at t in {0, 2, 3}.
 
-    a, b: [I, n, W]; c: [n, W] shared.  Returns [3, I, W] sums."""
+    a, b: [I, n, W]; c: [n, W] shared (with a mesh, this rank's shards).
+    Returns [3, I, W] sums."""
     half = a.shape[1] // 2
     a_lo, a_hi = a[:, :half], a[:, half:]
     b_lo, b_hi = b[:, :half], b[:, half:]
     c_lo, c_hi = c[:half], c[half:]
 
-    def prod3(x, y, z):
-        return TFr.mul(TFr.mul(x, y), z)
+    def cols(x, y, z):  # [I, half, W] -> [I, W + 3]
+        return TFr.sum_columns(TFr.mul(TFr.mul(x, y), z[None]).movedim(1, 0))
 
-    e0 = TFr.sum(prod3(a_lo, b_lo, c_lo[None]).movedim(1, 0))  # [I, W]
-
+    e0 = cols(a_lo, b_lo, c_lo)
     a_d, b_d, c_d = TFr.sub(a_hi, a_lo), TFr.sub(b_hi, b_lo), TFr.sub(c_hi, c_lo)
     a2, b2, c2 = TFr.add(a_hi, a_d), TFr.add(b_hi, b_d), TFr.add(c_hi, c_d)
-    e2 = TFr.sum(prod3(a2, b2, c2[None]).movedim(1, 0))
-
+    e2 = cols(a2, b2, c2)
     a3, b3, c3 = TFr.add(a2, a_d), TFr.add(b2, b_d), TFr.add(c2, c_d)
-    e3 = TFr.sum(prod3(a3, b3, c3[None]).movedim(1, 0))
-    return torch.stack([e0, e2, e3])
+    e3 = cols(a3, b3, c3)
+    return finish_columns(torch.stack([e0, e2, e3]), mesh)
 
 
-@instrument("Sumcheck.prove_batched")
-def prove_cubic_batched(claim: int, num_rounds: int, a_stack, b_stack, c_poly,
-                        coeffs: list[int], transcript):
-    """Batched product-layer sumcheck (reference: sumcheck.rs:27-135).
-
-    a_stack, b_stack: [I, n, W] (left/right inputs per instance);
-    c_poly: [n, W] shared eq polynomial; coeffs: host RLC coefficients.
-
-    Returns (proof, r, (claims_A, claims_B, claim_C))."""
-    e = claim % Fr.p
-    a, b, c = a_stack, b_stack, c_poly
-    del a_stack, b_stack, c_poly
-    device = a.device
+def _cubic_host_rounds(e: int, a, b, c, coeffs: list[int], num_rounds: int,
+                       transcript, compressed: list, r_out: list, mesh=None):
+    """prove_cubic_batched's rounds on the host transcript, appending to
+    compressed and r_out; returns (claim, a, b, c bound)."""
     num_instances = a.shape[0]
-    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
-        rlc = TFr.encode_ints(coeffs, device)
-        e_mont = TFr.encode_scalar(e, device)
-        dt = DeviceTranscript.from_host(transcript, device)
-        limbs = _prove_cubic_batched_device(e_mont, num_rounds, a, b, c, rlc,
-                                            dt)
-        del a, b, c
-        vals = TFr.decode(dt.finish(transcript, limbs))
-        compressed, r_out = _round_polys(vals, num_rounds, 4)
-        claims = vals[num_rounds * 5:]
-        return (SumcheckInstanceProof(compressed), r_out,
-                (claims[:num_instances], claims[num_instances:-1],
-                 claims[-1]))
-
-    compressed = []
-    r_out: list[int] = []
-
     for _ in range(num_rounds):
-        flat = TFr.decode(_cubic_round_evals(a, b, c).reshape(
+        flat = TFr.decode(_cubic_round_evals(a, b, c, mesh).reshape(
             3 * num_instances, -1))
         e0 = flat[0:num_instances]
         e2 = flat[num_instances:2 * num_instances]
@@ -369,13 +376,55 @@ def prove_cubic_batched(claim: int, num_rounds: int, a_stack, b_stack, c_poly,
 
         r_j = transcript.challenge_scalar(b"challenge_nextround")
         r_out.append(r_j)
-        r_dev = TFr.encode_scalar(r_j, device)
+        r_dev = TFr.encode_scalar(r_j, a.device)
         a = _bind_top(a, r_dev)
         b = _bind_top(b, r_dev)
         c = _bind_top_single(c, r_dev)
         e = round_poly.evaluate(r_j)
         compressed.append(round_poly.compress())
+    return e, a, b, c
 
+
+@instrument("Sumcheck.prove_batched")
+def prove_cubic_batched(claim: int, num_rounds: int, a_stack, b_stack, c_poly,
+                        coeffs: list[int], transcript, mesh=None):
+    """Batched product-layer sumcheck (reference: sumcheck.rs:27-135).
+
+    a_stack, b_stack: [I, n, W] (left/right inputs per instance);
+    c_poly: [n, W] shared eq polynomial; coeffs: host RLC coefficients.
+    With a mesh, the three are this rank's cyclic shards, as in
+    prove_arbitrary.
+
+    Returns (proof, r, (claims_A, claims_B, claim_C))."""
+    e = claim % Fr.p
+    a, b, c = a_stack, b_stack, c_poly
+    del a_stack, b_stack, c_poly
+    device = a.device
+    num_instances = a.shape[0]
+    compressed: list = []
+    r_out: list[int] = []
+    if mesh is not None:
+        sharded = min(_log2(a.shape[1]), num_rounds)
+        e, a, b, c = _cubic_host_rounds(e, a, b, c, coeffs, sharded,
+                                        transcript, compressed, r_out, mesh)
+        a, b, c = mesh.gather(a, axis=1), mesh.gather(b, axis=1), mesh.gather(c)
+        num_rounds -= sharded
+    if num_rounds > 0 and _device_sumcheck_supported(transcript, device):
+        rlc = TFr.encode_ints(coeffs, device)
+        e_mont = TFr.encode_scalar(e, device)
+        dt = DeviceTranscript.from_host(transcript, device)
+        limbs = _prove_cubic_batched_device(e_mont, num_rounds, a, b, c, rlc,
+                                            dt)
+        del a, b, c
+        vals = TFr.decode(dt.finish(transcript, limbs))
+        polys, rs = _round_polys(vals, num_rounds, 4)
+        claims = vals[num_rounds * 5:]
+        return (SumcheckInstanceProof(compressed + polys), r_out + rs,
+                (claims[:num_instances], claims[num_instances:-1],
+                 claims[-1]))
+
+    e, a, b, c = _cubic_host_rounds(e, a, b, c, coeffs, num_rounds,
+                                    transcript, compressed, r_out)
     claims_a = TFr.decode(a[:, 0])
     claims_b = TFr.decode(b[:, 0])
     claim_c = TFr.decode(c[0][None])[0]

@@ -14,7 +14,8 @@ from dataclasses import dataclass
 import torch
 
 from lasso_tpu_torch.field.tfield import TFr, W
-from lasso_tpu_torch.poly.dense import DensePolynomial, bound_var_bot_host
+from lasso_tpu_torch.poly.dense import (DensePolynomial, bound_var_bot_host,
+                                        finish_columns)
 from lasso_tpu_torch.poly.hyrax import (PolyCommitment, PolyCommitmentGens,
                                         PolyEvalProof, commit_poly)
 from lasso_tpu_torch.subtables.base import SubtableStrategy
@@ -31,31 +32,45 @@ def _gather_flat(table_vals, nz, sub_of: tuple, dim_of: tuple, pad: int):
     return torch.cat(rows, dim=0)
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max((n - 1).bit_length(), 0)
+
+
 def _rows_view(flat, alpha: int, s: int):
     """The first alpha*s rows of a flat merged array as [alpha, s, W]."""
     return flat[: alpha * s].reshape(alpha, s, W)
 
 
-def _claim_kernel(flat, eq_table, comb, alpha: int, s: int):
-    """sum_k eq[k] * g(E(k)) from the flat merged lookups."""
-    return TFr.sum(TFr.mul(comb(_rows_view(flat, alpha, s)), eq_table))
+def _claim_kernel(flat, eq_table, comb, alpha: int, mesh=None):
+    """sum_k eq[k] * g(E(k)) from the flat merged lookups (rows of
+    eq_table's length; with a mesh, this rank's shards, summed over the
+    ranks)."""
+    rows = _rows_view(flat, alpha, eq_table.shape[0])
+    return finish_columns(TFr.sum_columns(TFr.mul(comb(rows), eq_table)), mesh)
 
 
-def _weighted_evals_kernel(flat, chis, alpha: int, s: int):
-    """[alpha, W]: each of the alpha stacked rows evaluated at the point
-    whose eq table is `chis`."""
-    prods = TFr.mul(_rows_view(flat, alpha, s), chis[None])
-    return TFr.sum(prods.movedim(1, 0))
+def weighted_evals(flat, chis, rows: int, mesh=None):
+    """[rows, W]: the first `rows` rows (of chis' length) of a flat merged
+    array, each evaluated at the point whose eq table is `chis`; with a
+    mesh, both are this rank's shards and the sums run over the ranks."""
+    prods = TFr.mul(_rows_view(flat, rows, chis.shape[0]), chis[None])
+    return finish_columns(TFr.sum_columns(prods.movedim(1, 0)), mesh)
 
 
 class Subtables:
     """Materialized subtables + lookup polynomials for one proof instance,
-    stored as ONE flat merged array (`combined_poly.z`)."""
+    stored as ONE flat merged array (`combined_poly.z`).  With a mesh
+    (parallel/sharded.ShardedSubtables), nz and the merged array are this
+    rank's cyclic shards."""
+
+    mesh = None
 
     @instrument("Subtables.construct")
     def __init__(self, strategy: SubtableStrategy, nz: torch.Tensor, s: int):
-        """nz: [C, s] int64 lookup indices on the proof's device."""
-        assert tuple(nz.shape) == (strategy.c, s)
+        """nz: [C, s/D] int64 lookup indices on the proof's device (D = 1
+        without a mesh)."""
+        d = 1 if self.mesh is None else self.mesh.size
+        assert tuple(nz.shape) == (strategy.c, s // d)
         self.strategy = strategy
         self.s = s
         device = nz.device
@@ -68,24 +83,32 @@ class Subtables:
                        for i in range(alpha))
         dim_of = tuple(strategy.memory_to_dimension_index(i)
                        for i in range(alpha))
-        total = alpha * s
-        pad = (1 << (total - 1).bit_length()) - total
-        flat = _gather_flat(self.table_vals, nz, sub_of, dim_of, pad)
-        self.combined_poly = DensePolynomial(flat)
+        n = _next_pow2(alpha * s)
+        flat = _gather_flat(self.table_vals, nz, sub_of, dim_of,
+                            (n - alpha * s) // d)
+        self.lookup_stack = _rows_view(flat, alpha, s // d)
+        self.combined_poly = self._poly(flat, n)
+
+    def _poly(self, flat, n: int):
+        return DensePolynomial(flat)
+
+    def stack_with_eq(self, eq_table: torch.Tensor) -> torch.Tensor:
+        """[E_1..E_alpha, eq]: the primary sumcheck's stack."""
+        return torch.cat([self.lookup_stack, eq_table[None]], dim=0)
 
     @instrument("Subtables.compute_sumcheck_claim")
     def compute_sumcheck_claim(self, eq_table: torch.Tensor) -> int:
         """sum_k eq[k] * g(E_1[k] .. E_alpha[k]) (reference: mod.rs:186-216)."""
         total = _claim_kernel(
             self.combined_poly.z, eq_table, self.strategy.comb_device(),
-            self.strategy.num_memories, self.s)
+            self.strategy.num_memories, self.mesh)
         return TFr.decode(total[None])[0]
 
     def evaluate_lookups_at(self, chis: torch.Tensor) -> list[int]:
         """All E_i evaluated at a point given its eq table ([n, W])."""
-        sums = _weighted_evals_kernel(
-            self.combined_poly.z, chis, self.strategy.num_memories, self.s)
-        return TFr.decode(sums)
+        return TFr.decode(weighted_evals(
+            self.combined_poly.z, chis, self.strategy.num_memories,
+            self.mesh))
 
     @instrument("Subtables.commit")
     def commit(self, gens: PolyCommitmentGens) -> "CombinedTableCommitment":
@@ -103,10 +126,6 @@ class CombinedTableCommitment:
         self.comm_ops_val.append_to_transcript(label, transcript)
         transcript.append_message(
             b"subtable_evals_commitment", b"end_subtable_evals_commitment")
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max((n - 1).bit_length(), 0)
 
 
 @dataclass

@@ -9,7 +9,10 @@ rejects tampered ones.  A mid-size AND instance, whose Hyrax commits take
 the device MSM path, must give the same bytes as when every MSM is routed
 to the host Pippenger, and as on the unfused curve path; the sumcheck and
 grand-product provers' device-transcript paths must give the host paths'
-proofs, challenges and final transcript state.
+proofs, challenges and final transcript state.  The multi-device prover
+(prove(..., mesh=), parallel/), run as gloo ranks on the CPU, must give
+the single-device bytes: every golden at D = 8 ranks, and the mid-size AND
+C=2, M=64, s=1024 at D = 4.
 """
 
 import hashlib
@@ -24,11 +27,13 @@ import lasso_tpu_torch.subtables.bitwise  # noqa: F401 (register strategies)
 import lasso_tpu_torch.subtables.lt  # noqa: F401
 import lasso_tpu_torch.subtables.range_check  # noqa: F401
 from lasso_tpu_torch.curve import tcurve
+from lasso_tpu_torch.entry import Spec, agreed, dryrun_spec, prove_instances
 from lasso_tpu_torch.field.tfield import TFr
 from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
 from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
                                          SparsePolynomialEvaluationProof)
 from lasso_tpu_torch.ops import field_cuda, msm
+from lasso_tpu_torch.parallel.launch import spawn
 from lasso_tpu_torch.subprotocols.grand_product import (
     BatchedGrandProductArgument, BatchedGrandProductCircuit)
 from lasso_tpu_torch.subprotocols.sumcheck import (prove_arbitrary,
@@ -69,7 +74,10 @@ def _prove(strategy_name, c, m, s, options=None):
 
 
 def _entry(proof, commitment):
-    pb, cb = serialize_proof(proof), serialize_commitment(commitment)
+    return _bytes_entry(serialize_proof(proof), serialize_commitment(commitment))
+
+
+def _bytes_entry(pb, cb):
     return {"proof_sha256": hashlib.sha256(pb).hexdigest(),
             "proof_len": len(pb),
             "commitment_sha256": hashlib.sha256(cb).hexdigest(),
@@ -104,11 +112,34 @@ def test_golden_proof_bytes_and_verify(name, monkeypatch):
     _check_golden(name, monkeypatch)
 
 
+# ranks of each golden's sharded prove: D = 8 meets the reference's
+# divisibility asserts for every golden (D | s, D | M, and D | r_size of
+# every Hyrax matrix: r_size >= 8 for all of them)
+SHARDED_D = 8
+
+
 def test_lt_and_range_golden_proof_bytes_and_verify(monkeypatch):
-    """The LT and range-check goldens as one test item: the tier-1 suite
-    keeps its item count (ROADMAP.md, ground rules)."""
+    """The LT and range-check goldens, and every golden proven sharded, as
+    one test item: the tier-1 suite keeps its item count (ROADMAP.md,
+    ground rules).  The sharded proves run in one spawn of SHARDED_D gloo
+    ranks on the CPU, with and_4d once more on the unfused curve path and
+    the dry run's instance (entry.dryrun_multichip) beside them: each must
+    have the golden's bytes on every rank, and the single-device verifier
+    accepts it."""
     for name in ("lt_4d", "lt_4d_big_s", "range_3d"):
         _check_golden(name, monkeypatch)
+
+    monkeypatch.delenv("LASSO_TPU_DEVICE_TRANSCRIPT")  # the ranks' default
+    specs = [Spec(st, c, m, s, tuple(opts.items()))
+             for st, c, m, s, opts in GOLDEN.values()]
+    specs += [Spec("and", 4, 16, 16, fused=False), dryrun_spec(SHARDED_D)]
+    results = agreed(spawn(prove_instances, SHARDED_D, "gloo", "cpu", specs))
+    with open(FIXTURES) as f:
+        golden = json.load(f)
+    for name, res in zip(list(GOLDEN) + ["and_4d"], results):
+        assert _bytes_entry(res["proof"], res["commitment"]) == golden[name], \
+            name
+    assert all(res["verified"] for res in results)
 
 
 @pytest.fixture(scope="module")
@@ -194,7 +225,8 @@ def test_device_msm_route_matches_host_route(monkeypatch):
     identical proof and commitment bytes, and so must the unfused curve
     configuration (LASSO_TPU_PALLAS_PADD=0: stacked limb-major products,
     K2's plain version here): every MSM result leaves the device as a
-    canonical compressed point.  Likewise the device-transcript route of
+    canonical compressed point.  So must the multi-device prover, as 4
+    gloo ranks, on AND C=2, M=64, s=1024.  Likewise the device-transcript route of
     the sumcheck and grand-product provers gives the host route's proofs,
     challenges and final transcript state, and the host verifier accepts
     its grand-product argument."""
@@ -219,6 +251,17 @@ def test_device_msm_route_matches_host_route(monkeypatch):
     finally:
         tcurve.set_fused_padd(None)
     assert _entry(proof_u, commitment_u) == via_device
+
+    # AND, C=2, M=64, s=1024 proven as 4 gloo ranks: multi-round sharded
+    # sumchecks, multi-layer sharded product trees and non-degenerate
+    # sharded L-folds give the single-device bytes
+    proof, commitment, _, _ = _prove("and", 2, 64, 1024)
+    sharded = agreed(spawn(prove_instances, 4, "gloo", "cpu",
+                           [Spec("and", 2, 64, 1024)]))[0]
+    assert _bytes_entry(sharded["proof"], sharded["commitment"]) == \
+        _entry(proof, commitment)
+    assert sharded["verified"]
+
     monkeypatch.setattr(msm, "MSM_HOST_MAX", 1 << 30)
     proof_h, commitment_h, _, _ = _prove("and", 1, 1 << 12, 1 << 11)
     assert _entry(proof_h, commitment_h) == via_device

@@ -1,6 +1,8 @@
-"""The port stands alone: lasso_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the entry points run on the card unless the
-caller asks for the CPU, with no silent fallback."""
+"""The port stands alone: lasso_tpu_torch (its multi-device prover and
+entry points included) and chip_smoke.py import neither JAX nor the JAX
+package, and the entry points -- the densifier and generators, the mesh,
+its launcher and lasso_tpu_torch.entry -- run on the card unless the caller
+asks for the CPU, with no silent fallback."""
 
 import ast
 import os
@@ -26,6 +28,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "lasso_tpu"
              or m.startswith("lasso_tpu."))
 assert not bad, bad
+for needed in ("lasso_tpu_torch.entry", "lasso_tpu_torch.parallel.mesh",
+               "lasso_tpu_torch.parallel.launch",
+               "lasso_tpu_torch.parallel.sharded",
+               "lasso_tpu_torch.parallel.checks"):
+    assert needed in sys.modules, needed
 print("imported", len([m for m in sys.modules if m.startswith("lasso_tpu_torch")]))
 """
 
@@ -62,6 +69,29 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         SparsePolyCommitmentGens.new(b"gens_sparse_poly", 1, 4, 1, 4)
     dense = DensifiedRepresentation([[1]] * 4, 4, 1, device="cpu")
     assert dense.combined_l_variate_polys.z.device.type == "cpu"
+
+    # the multi-device entry points: no card, no CUDA mesh, no NCCL rank
+    from lasso_tpu_torch import entry
+    from lasso_tpu_torch.parallel.launch import spawn
+    from lasso_tpu_torch.parallel.mesh import make_mesh
+
+    never = "file:///nonexistent/rendezvous"  # raised before it is opened
+    with pytest.raises(RuntimeError):
+        make_mesh(0, 1, never, "gloo")
+    with pytest.raises(ValueError):  # more NCCL ranks than cards
+        make_mesh(0, 1, never, "nccl", device="cpu")
+    with pytest.raises(RuntimeError):
+        spawn(entry.prove_instances, 2, "gloo", "cuda", [])
+    with pytest.raises(ValueError):
+        spawn(entry.prove_instances, 2, "nccl", "cpu", [])
+    with pytest.raises(RuntimeError):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError):
+        entry.entry()
+    step, (stack, r) = entry.entry("cpu")
+    evals, bound = step(stack, r)
+    assert evals.shape == (3, 16) and bound.shape == (5, 512, 16)
+    assert bound.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -9,6 +9,9 @@ the Horner combine.  Results are compared as canonical points (compressed
 bytes), never as projective limbs: the order of curve additions differs
 between implementations.  JAX-side computations run in a fresh process
 with the compile cache off, away from the cache parallel workers share.
+The provers' mesh-aware pieces (prove(..., mesh=), parallel/), run as 8
+gloo ranks on the CPU, are held against their single-device counterparts
+exactly, at the shapes of the JAX package's own sharded tests.
 """
 
 import os
@@ -26,6 +29,15 @@ from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr
 from lasso_tpu_torch.ops import field_cuda
 from lasso_tpu_torch.ops import msm
+from lasso_tpu_torch.parallel.checks import primitives_rank, product_comb
+from lasso_tpu_torch.parallel.launch import spawn
+from lasso_tpu_torch.poly.dense import DensePolynomial, eq_evals_host
+from lasso_tpu_torch.poly.hyrax import PolyCommitmentGens, commit_poly
+from lasso_tpu_torch.subprotocols.grand_product import (
+    BatchedGrandProductArgument, BatchedGrandProductCircuit)
+from lasso_tpu_torch.subprotocols.sumcheck import (_bind_top, _round_evals,
+                                                   prove_arbitrary)
+from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
 
 # small tensors: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores
@@ -165,3 +177,53 @@ def test_bucket_reductions_match_host():
     weighted = msm._bucket_weighted_sum_blocked(buckets)
     total = msm_host(want, list(range(1, num_buckets + 1)))
     assert _compressed(tcurve.to_host_point(weighted)) == _compressed(total)
+
+    _check_sharded_primitives()
+
+
+def _check_sharded_primitives():
+    """The provers' mesh-aware pieces as 8 gloo ranks against the
+    single-device functions on the same inputs: round evals and bind, the
+    eq table, prove_arbitrary (n = 64, alpha = 3, 6 rounds: three sharded
+    rounds and a three-round replicated tail), the grand-product argument
+    over a sharded circuit (leaves [3, 64]: three sharded layers, then the
+    top circuit) and a Hyrax commitment of 2^6 full-width scalars (one
+    matrix column per rank)."""
+    rng = np.random.default_rng(21)
+
+    def field(*shape):
+        vals = [int.from_bytes(rng.bytes(32), "little") % Fr.p
+                for _ in range(int(np.prod(shape)))]
+        return TFr.encode_ints(vals, "cpu").reshape(shape + (16,))
+
+    inputs = {"zs": field(2, 64), "r": field(1)[0],
+              "eq_r": [int(v) for v in rng.integers(1, 1 << 62, size=6)],
+              "sc_zs": field(3, 64), "leaves": field(3, 64),
+              "commit_z": field(64)}
+    got = spawn(primitives_rank, 8, "gloo", "cpu",
+                {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                 for k, v in inputs.items()})
+    assert all(g == got[0] for g in got[1:])  # replicated on every rank
+    got = got[0]
+
+    def dec(t):
+        return TFr.decode(t.reshape(-1, 16))
+
+    zs = inputs["zs"]
+    assert got["round_evals"] == dec(_round_evals(zs, product_comb, 2))
+    assert got["bound"] == dec(_bind_top(zs, inputs["r"]))
+    assert got["eq"] == eq_evals_host(inputs["eq_r"])
+    proof, r, finals, _ = prove_arbitrary(
+        inputs["sc_zs"], product_comb, 3, 6, ProofTranscript(b"dist"))
+    assert got["sumcheck"] == (
+        [p.coeffs_except_linear_term for p in proof.compressed_polys], r,
+        finals)
+    gp, gp_rand = BatchedGrandProductArgument.prove(
+        BatchedGrandProductCircuit(inputs["leaves"]), ProofTranscript(b"dist"))
+    assert got["grand_product"] == (
+        [([p.coeffs_except_linear_term for p in layer.proof.compressed_polys],
+          layer.claims_prod_left, layer.claims_prod_right)
+         for layer in gp.proof], gp_rand)
+    comm, _ = commit_poly(DensePolynomial(inputs["commit_z"]),
+                          PolyCommitmentGens.new(6, b"dist"))
+    assert got["commitment"] == [_compressed(p) for p in comm.C]
