@@ -62,7 +62,17 @@ Phases, in order; each prints one line and any failure exits non-zero:
      rank's peak device memory is printed twice: from its densify on
      (every rank densifies the whole instance) and from its shard's commit
      on.  Four ranks on one card check correctness and per-rank dispatch,
-     not scaling.  Then the `kernels` JSON line, the card line, and the final
+     not scaling;
+ 12. the reference's public API at full width (public_api_phase): a
+     DensePolynomial of 2^19 values (the jolt-demo's merged lookup table)
+     and of 2^16 (the flagship's M) bound variable by variable from the top
+     and from the bottom to evaluate()'s value, with evaluate_device's limbs
+     equal to the plain version's on a CPU copy and, at 2^16, to the host
+     evaluate_host; a GrandProductCircuit on 2^16 leaves against the host
+     product and the batched circuit; and merge, split, clone, to_ints,
+     indexing, Subtables.lookup_polys and combine_eq_device on phase 5's
+     flagship instance, combine_eq_device equal to the combine function
+     prove uses.  Then the `kernels` JSON line, the card line, and the final
      status line.
 
 Phases 4, 5 and 8 run on the device transcript route, the default on a
@@ -172,6 +182,169 @@ def random_limbs(rng, n: int, field):
         limbs[2] = np.asarray(field.p_limbs)
         limbs[2, 0] -= 1
     return limbs.astype(np.int32)
+
+
+def public_api_phase(dev, dense, strategy, r_flag, card, rng) -> dict:
+    """Phase 12: the reference's public API on `dev` at full width.  (a) A
+    DensePolynomial from_u64 of 2^19 values (the jolt-demo's merged lookup
+    table, alpha*s = 8*2^16) and of 2^16 (the flagship's M), bound to one
+    element variable by variable from the top and, at the reversed point,
+    from the bottom; both must equal evaluate() there, evaluate_device's
+    limbs must equal the plain version's on a CPU copy, and at 2^16 the
+    host evaluate_host.  (b) A GrandProductCircuit on 2^16 leaves: 16
+    layers, the host product as its root, and layer 0's halves equal to
+    the batched circuit's.  (c) merge, split, clone, to_ints, indexing and
+    Subtables.lookup_polys / combine_eq_device on the flagship instance
+    `dense` (strategy, point r_flag).  Prints one line per part; returns
+    each part's K1 launches."""
+    import numpy as np
+    import torch
+
+    from lasso_tpu_torch.field.tfield import TFr
+    from lasso_tpu_torch.ops import field_cuda
+    from lasso_tpu_torch.poly.dense import (DensePolynomial, eq_table,
+                                            evaluate_host)
+    from lasso_tpu_torch.subprotocols.grand_product import (
+        BatchedGrandProductCircuit, GrandProductCircuit)
+    from lasso_tpu_torch.subtables.container import Subtables
+
+    p = TFr.host.p
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def scalars(n):
+        return [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+
+    def enc(xs, device):
+        return [TFr.encode_scalar(x, device) for x in xs]
+
+    launches = {}
+    # -- (a) a dense polynomial at two widths
+    for label, log_n in (("jolt_demo_merged_2^19", 19), ("flagship_m_2^16", 16)):
+        field_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals = rng.integers(0, 2**63, size=1 << log_n, dtype=np.uint64)
+        poly = DensePolynomial.from_u64(vals, dev)
+        point = scalars(log_n)
+        top = poly
+        for x in enc(point, dev):
+            top = top.bound_var_top(x)
+        bot = poly
+        for x in enc(point[::-1], dev):
+            bot = bot.bound_var_bot(x)
+        value = poly.evaluate(point)
+        limbs = poly.evaluate_device(enc(point, dev))
+        sync()
+        card_s = time.perf_counter() - t0
+        launches[label] = field_cuda.launch_counts["mont_mul"]
+        if (len(top), len(bot)) != (1, 1) or top[0] != value or \
+                bot[0] != value:
+            fail(f"phase 12 (a) {label}: the bound polynomials differ from "
+                 "evaluate()")
+        if TFr.decode(limbs[None]) != [value]:
+            fail(f"phase 12 (a) {label}: evaluate_device differs from evaluate")
+        t1 = time.perf_counter()
+        plain = DensePolynomial(poly.z.cpu()).evaluate_device(
+            enc(point, "cpu"))
+        cpu_s = time.perf_counter() - t1
+        if not torch.equal(plain, limbs.cpu()):
+            fail(f"phase 12 (a) {label}: evaluate_device's limbs differ from "
+                 "the plain version's on the CPU")
+        host = ""
+        if log_n == 16:
+            t1 = time.perf_counter()
+            if evaluate_host([int(v) for v in vals], point) != value:
+                fail(f"phase 12 (a) {label}: evaluate differs from "
+                     "evaluate_host")
+            host = f" evaluate_host=equal host_s={time.perf_counter() - t1:.3f}"
+        print(f"phase 12 (a) dense polynomial {label}: device={poly.z.device} "
+              f"bound_var_top x{log_n} == bound_var_bot x{log_n} == evaluate "
+              f"== evaluate_device, limbs == plain version on the CPU{host} "
+              f"card_s={card_s:.3f} cpu_plain_s={cpu_s:.3f} "
+              f"wall_s={time.perf_counter() - t0:.3f} "
+              f"k1_launches={launches[label]} card: {card}", flush=True)
+
+    # -- (b) a grand-product circuit on 2^16 leaves
+    field_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    leaves = [1 + x % (p - 1) for x in scalars(1 << 16)]  # nonzero
+    z = DensePolynomial.from_ints(leaves, dev).z
+    circuit = GrandProductCircuit(z)
+    root = circuit.evaluate()
+    batched = BatchedGrandProductCircuit(z[None])
+    halves = (torch.equal(circuit.left_vec(0), batched.left_layers[0][0])
+              and torch.equal(circuit.right_vec(0), batched.right_layers[0][0])
+              and torch.equal(circuit.left_vec(0), z[: 1 << 15]))
+    sync()
+    card_s = time.perf_counter() - t0
+    launches["grand_product_2^16"] = field_cuda.launch_counts["mont_mul"]
+    want = 1
+    for x in leaves:
+        want = want * x % p
+    if circuit.num_layers != 16 or root != want or not halves:
+        fail(f"phase 12 (b): num_layers={circuit.num_layers}, "
+             f"root == host product: {root == want}, halves equal: {halves}")
+    print(f"phase 12 (b) GrandProductCircuit 2^16 leaves: device={z.device} "
+          "num_layers=16 evaluate == host product, left_vec(0)/right_vec(0) "
+          f"== the batched circuit's layer-0 halves card_s={card_s:.3f} "
+          f"wall_s={time.perf_counter() - t0:.3f} "
+          f"k1_launches={launches['grand_product_2^16']} card: {card}",
+          flush=True)
+
+    # -- (c) the small methods on the flagship instance
+    field_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    subtables = Subtables(strategy, dense.dim_usize, dense.s)
+    eq = eq_table(r_flag, dev)
+    zs = subtables.stack_with_eq(eq)
+    comb = subtables.combine_eq_device(zs)
+    prove_comb = strategy.comb_eq_device()(zs)  # what prove hands the sumcheck
+    claim = subtables.compute_sumcheck_claim(eq)
+    comb_sum = TFr.decode(TFr.sum(comb)[None])[0]
+    l_poly = dense.combined_l_variate_polys
+    merged = DensePolynomial.merge(dense.dim + dense.read)
+    lo, hi = l_poly.split(dense.s)
+    twin = dense.combined_log_m_variate_polys.clone()
+    sync()
+    card_s = time.perf_counter() - t0
+    launches["flagship_small_methods"] = field_cuda.launch_counts["mont_mul"]
+    if not torch.equal(comb, prove_comb) or comb_sum != claim:
+        fail("phase 12 (c): combine_eq_device differs from the combine "
+             "function prove uses, or its sum from the sumcheck claim")
+    if not (torch.equal(merged.z, l_poly.z) and torch.equal(lo.z, dense.dim[0].z)
+            and torch.equal(hi.z, dense.read[0].z)
+            and twin is not dense.combined_log_m_variate_polys
+            and torch.equal(twin.z, dense.combined_log_m_variate_polys.z)):
+        fail("phase 12 (c): merge, split or clone differs from the "
+             "densified polynomials")
+    addrs = dense.dim_usize[0].tolist()
+    counters, read_want = [0] * dense.m, []
+    for a in addrs:
+        read_want.append(counters[a])
+        counters[a] += 1
+    table = strategy.materialize_subtables()[0]
+    polys = subtables.lookup_polys
+    if len(polys) != strategy.num_memories or \
+            polys[0].to_ints() != [int(table[a]) for a in addrs]:
+        fail("phase 12 (c): lookup_polys differ from the gathered table")
+    if dense.dim[0].to_ints() != addrs or dense.read[0].to_ints() != read_want:
+        fail("phase 12 (c): to_ints of dim/read differs from the host counters")
+    final = dense.final[0]
+    for k in (0, addrs[0], addrs[-1], dense.m - 1):
+        if final[k] != counters[k]:
+            fail(f"phase 12 (c): final[{k}] differs from the host counter")
+    print(f"phase 12 (c) flagship small methods: lookup_polys == gathered "
+          "table, combine_eq_device == prove's combine function (limbs) and "
+          "sums to the sumcheck claim, merge(dim+read) == the l-variate "
+          "polynomial, split == (dim, read), clone, to_ints == host "
+          f"counters, final[k] == host counters card_s={card_s:.3f} "
+          f"wall_s={time.perf_counter() - t0:.3f} "
+          f"k1_launches={launches['flagship_small_methods']} card: {card}",
+          flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1010,7 +1183,7 @@ def main() -> int:
     from lasso_tpu_torch.parallel.launch import spawn
 
     want = (pb, serialize_commitment(flagship_public[0]))  # phase 5's bytes
-    del dense, gens, flagship_prove
+    del gens, flagship_prove  # phase 12 reads `dense` again
     torch.cuda.empty_cache()
     sharded_launches = {}
     for label, ranks, backend in (("nccl_1rank", 1, "nccl"),
@@ -1051,6 +1224,15 @@ def main() -> int:
     print(f"phase 11 [{elapsed()}] card: {card_line()} (ranks sharing one "
           "card: correctness and per-rank dispatch, not scaling)", flush=True)
 
+    # -- 12. the reference's public API at full width --------------------------
+    t12 = time.perf_counter()
+    api_launches = public_api_phase(dev, dense, strategy, r, card_line(),
+                                    np.random.default_rng(20241018))
+    print(f"phase 12 [{elapsed()}] public API: phase_s="
+          f"{time.perf_counter() - t12:.1f} k1_launches="
+          f"{json.dumps(api_launches)}", flush=True)
+    del dense
+
     def kernel_row(name, source, replaces, launches, err, main, by_path):
         """The kernels line's entry: the contract's keys at the main path's
         shape ("ms" is the kernel's device time per launch there), then
@@ -1070,7 +1252,8 @@ def main() -> int:
                    prove_counts["mont_mul"], k1["max_abs_err"], k1_main,
                    {"flagship_prove": prove_counts["mont_mul"],
                     "jolt_demo_fused_prove": jd_counts["mont_mul"],
-                    **sharded_launches["mont_mul"]}),
+                    **sharded_launches["mont_mul"],
+                    **{f"public_api_{k}": v for k, v in api_launches.items()}}),
         kernel_row("mont_mul_lm (K2)", "lasso_tpu_torch/csrc/mont_mul_lm.cu",
                    "lasso_tpu/ops/field_pallas.py:112",
                    cli_counts["mont_mul_lm"], max(k2["max_abs_err"], err2),

@@ -83,6 +83,17 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  CUDA is the default; asking for
+    it without a card raises instead of falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
 def _as_tensor(x, device) -> torch.Tensor:
     return upload(np.asarray(x).astype(np.int32), device)
 

@@ -18,21 +18,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lasso_tpu_torch.field.tfield import TFr
+from lasso_tpu_torch.field.tfield import TFr, resolve_device
 from lasso_tpu_torch.poly.dense import DensePolynomial
 from lasso_tpu_torch.poly.hyrax import PolyCommitment, commit_poly
 from lasso_tpu_torch.utils.tracing import instrument
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on.  CUDA is the default; asking for
-    it without a card raises instead of falling back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA device requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' to run on the CPU")
-    return device
 
 
 def _timestamps(addrs, m: int):

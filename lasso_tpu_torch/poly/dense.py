@@ -2,20 +2,30 @@
 
 The evaluation table is an [n, 16] Montgomery limb tensor over Fr on the
 proof's device.  Index convention matches the reference: index bit 0 (LSB)
-is the LAST variable.  The sumcheck binds its tables itself
-(subprotocols/sumcheck.py); the Hyrax opening needs the L-fold here.
+is the LAST variable; `bound_var_top` binds the most significant variable
+(splits the table in halves), `bound_var_bot` the least significant
+(even/odd interleave).  The sumcheck binds its tables with the same
+`_bind_top_single`; the Hyrax opening needs the L-fold here.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lasso_tpu_torch.field.host import Fr
-from lasso_tpu_torch.field.tfield import TFr, W
+from lasso_tpu_torch.field.tfield import TFr, W, resolve_device
 
 
 def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
+
+
+def _bind_top_single(z, r):
+    """Bind the top variable of one table: [n, W] -> [n/2, W]."""
+    half = z.shape[0] // 2
+    lo, hi = z[:half], z[half:]
+    return TFr.add(lo, TFr.mul(r, TFr.sub(hi, lo)))
 
 
 def _bound_fold(z, l_vec):
@@ -58,6 +68,33 @@ class DensePolynomial:
         assert _is_pow2(z.shape[0]), "dense MLE length must be a power of two"
         self.z = z
 
+    # -- constructors ---------------------------------------------------
+    @classmethod
+    def from_ints(cls, vals, device="cuda") -> "DensePolynomial":
+        return cls(TFr.encode_ints(vals, resolve_device(device)))
+
+    @classmethod
+    def from_u64(cls, vals, device="cuda") -> "DensePolynomial":
+        """From small non-negative ints (e.g. indices/counters), padded to pow2."""
+        vals = np.asarray(vals, dtype=np.uint64)
+        n = len(vals)
+        pow2 = 1 << max((n - 1).bit_length(), 0) if n else 1
+        if pow2 != n:
+            vals = np.concatenate([vals, np.zeros(pow2 - n, dtype=np.uint64)])
+        return cls(TFr.encode_u64_array(vals, resolve_device(device)))
+
+    @classmethod
+    def merge(cls, polys) -> "DensePolynomial":
+        """Concatenate several polynomials, zero-padded to the next pow2
+        (reference: dense_mlpoly.rs:251-261)."""
+        zs = [p.z for p in polys]
+        total = sum(z.shape[0] for z in zs)
+        pow2 = 1 << (total - 1).bit_length()
+        if pow2 != total:
+            zs.append(TFr.zeros(pow2 - total, zs[0].device))
+        return cls(torch.cat(zs, dim=0))
+
+    # -- metadata -------------------------------------------------------
     def __len__(self) -> int:
         return self.z.shape[0]
 
@@ -69,9 +106,42 @@ class DensePolynomial:
     def device(self) -> torch.device:
         return self.z.device
 
+    def clone(self) -> "DensePolynomial":
+        return DensePolynomial(self.z)
+
+    def split(self, idx: int):
+        return DensePolynomial(self.z[:idx]), DensePolynomial(self.z[idx: 2 * idx])
+
+    # -- core ops -------------------------------------------------------
+    def bound_var_top(self, r) -> "DensePolynomial":
+        """Bind the top variable to scalar r ([W] Montgomery limbs)."""
+        return DensePolynomial(_bind_top_single(self.z, r))
+
+    def bound_var_bot(self, r) -> "DensePolynomial":
+        """Bind the bottom variable (the even/odd interleave) to r."""
+        lo, hi = self.z[0::2], self.z[1::2]
+        return DensePolynomial(TFr.add(lo, TFr.mul(r, TFr.sub(hi, lo))))
+
     def bound(self, l_vec: torch.Tensor) -> torch.Tensor:
         """L-fold for Hyrax: view Z as an [L, R] matrix, return L @ Z ([R, W])."""
         return _bound_fold(self.z, l_vec)
+
+    def evaluate_device(self, r_list) -> torch.Tensor:
+        """Z(r) as a [W] scalar on the polynomial's device."""
+        chis = eq_evals_device(r_list, self.device)
+        assert chis.shape[0] == len(self)
+        return TFr.sum(TFr.mul(self.z, chis))
+
+    def evaluate(self, r_ints: list[int]) -> int:
+        """Z(r) as a host int (r given as host field ints)."""
+        rs = [TFr.encode_scalar(x, self.device) for x in r_ints]
+        return TFr.decode(self.evaluate_device(rs)[None])[0]
+
+    def to_ints(self) -> list[int]:
+        return TFr.decode(self.z)
+
+    def __getitem__(self, i: int) -> int:
+        return TFr.decode(self.z[i][None])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +151,13 @@ class DensePolynomial:
 def bound_var_bot_host(vals: list[int], r: int) -> list[int]:
     return [(vals[2 * i] + r * (vals[2 * i + 1] - vals[2 * i])) % Fr.p
             for i in range(len(vals) // 2)]
+
+
+def evaluate_host(vals: list[int], r: list[int]) -> int:
+    """MLE evaluation with host ints (verifier-side tiny cases)."""
+    assert len(vals) == 1 << len(r)
+    chis = eq_evals_host(r)
+    return sum(v * c for v, c in zip(vals, chis)) % Fr.p
 
 
 def eq_evals_host(r: list[int]) -> list[int]:

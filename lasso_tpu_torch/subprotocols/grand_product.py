@@ -162,6 +162,28 @@ class BatchedGrandProductCircuit:
         return TFr.decode(self.evaluate_device())
 
 
+class GrandProductCircuit:
+    """Single product-tree circuit (reference: grand_product.rs:13-65): a
+    one-instance BatchedGrandProductCircuit, whose halves it reads."""
+
+    def __init__(self, poly):
+        z = poly.z if hasattr(poly, "z") else poly
+        self._batched = BatchedGrandProductCircuit(z[None])
+
+    @property
+    def num_layers(self) -> int:
+        return self._batched.num_layers
+
+    def left_vec(self, layer: int) -> torch.Tensor:
+        return self._batched.left_layers[layer][0]
+
+    def right_vec(self, layer: int) -> torch.Tensor:
+        return self._batched.right_layers[layer][0]
+
+    def evaluate(self) -> int:
+        return self._batched.evaluate()[0]
+
+
 class ShardedBatchedGPCircuit:
     """BatchedGrandProductCircuit over cyclic-sharded leaves [I, n/D, W]
     (one rank of a mesh, parallel/mesh.py): rank-local layers while a layer

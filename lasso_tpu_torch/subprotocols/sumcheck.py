@@ -37,7 +37,7 @@ import torch
 
 from lasso_tpu_torch.field.host import Fr
 from lasso_tpu_torch.field.tfield import TFr, W, pack_int
-from lasso_tpu_torch.poly.dense import finish_columns
+from lasso_tpu_torch.poly.dense import _bind_top_single, finish_columns
 from lasso_tpu_torch.poly.unipoly import (CompressedUniPoly, UniPoly,
                                           _solve_vandermonde)
 from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
@@ -73,12 +73,6 @@ def _bind_top(zs, r):
     half = zs.shape[1] // 2
     lo = zs[:, :half]
     hi = zs[:, half:]
-    return TFr.add(lo, TFr.mul(r, TFr.sub(hi, lo)))
-
-
-def _bind_top_single(z, r):
-    half = z.shape[0] // 2
-    lo, hi = z[:half], z[half:]
     return TFr.add(lo, TFr.mul(r, TFr.sub(hi, lo)))
 
 

@@ -168,6 +168,10 @@ def get_strategy(name: str, c: int, m: int, **kwargs) -> SubtableStrategy:
     return got
 
 
+def list_strategies() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def split_bits(idx: np.ndarray, num_bits: int):
     """(high, low) chunks of idx, each num_bits wide (vectorized)."""
     mask = (1 << num_bits) - 1

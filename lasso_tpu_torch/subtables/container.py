@@ -92,6 +92,16 @@ class Subtables:
     def _poly(self, flat, n: int):
         return DensePolynomial(flat)
 
+    @property
+    def lookup_polys(self) -> list[DensePolynomial]:
+        return [DensePolynomial(self.lookup_stack[i])
+                for i in range(self.strategy.num_memories)]
+
+    def combine_eq_device(self, zs):
+        """The primary sumcheck's combine function over zs [alpha+1, m, W]:
+        the one that prove hands to prove_arbitrary."""
+        return self.strategy.comb_eq_device()(zs)
+
     def stack_with_eq(self, eq_table: torch.Tensor) -> torch.Tensor:
         """[E_1..E_alpha, eq]: the primary sumcheck's stack."""
         return torch.cat([self.lookup_stack, eq_table[None]], dim=0)

@@ -130,14 +130,198 @@ out["neg_lm"] = np.asarray(jf.neg_lm(ja_lm))
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
 def test_sums_match_jax(name, tmp_path):
+    """The field sums; for Fr also the dense polynomial, the densifier's
+    timestamps and the single grand-product circuit against the JAX
+    package's, in the same JAX process (ports of tests/test_poly_densified.py
+    and test_utils_parity.py::test_single_grand_product_circuit)."""
     tf, a, b, ta, _ = _pair(name, seed=7)
-    ref = jax_reference(_JFIELD + """
+    script = _JFIELD + """
 out["sum"] = np.asarray(jf.sum(ja))
 out["sum3"] = np.asarray(jf.sum(ja.reshape(16, 4, 16)))
-""", tmp_path, field=name, a=_strs(a), b=_strs(b))
+"""
+    extra = {}
+    if name == "Fr":
+        script += _JAX_POLY
+        extra = _poly_inputs()
+    ref = jax_reference(script, tmp_path, field=name, a=_strs(a), b=_strs(b),
+                        **extra)
     _eq(tf.sum(ta), ref["sum"])
     _eq(tf.finish_sum(tf.sum_columns(ta.reshape(16, 4, 16))), ref["sum3"])
     assert tf.decode(tf.sum(ta)[None]) == [sum(a) % tf.host.p]
+    if name == "Fr":
+        _check_poly(extra, ref)
+
+
+# The dense polynomial's API, the densifier and the single grand-product
+# circuit in the JAX package, on _poly_inputs().
+_JAX_POLY = """
+import jax.numpy as jnp
+from lasso_tpu.lasso.densified import DensifiedRepresentation, _timestamps
+from lasso_tpu.poly.dense import DensePolynomial, evaluate_host
+from lasso_tpu.subprotocols.grand_product import GrandProductCircuit
+ints = lambda key: [int(v) for v in inp[key]]
+r4 = ints("r4")
+rs = [JFr.encode_scalar(x) for x in r4]
+p8 = DensePolynomial.from_ints(ints("z8"))
+out["top"] = np.asarray(p8.bound_var_top(rs[0]).z)
+out["bot"] = np.asarray(p8.bound_var_bot(rs[0]).z)
+p16 = DensePolynomial.from_ints(ints("z16"))
+out["z16"] = np.asarray(p16.z)
+out["eval_device"] = np.asarray(p16.evaluate_device(rs))
+out["eval"] = np.array(str(p16.evaluate(r4)))
+out["eval_host"] = np.array(str(evaluate_host(ints("z16"), r4)))
+cur = p16
+for r in rs:
+    cur = cur.bound_var_top(r)
+out["via_binds"] = np.asarray(cur.z)
+out["fold"] = np.asarray(p16.bound(JFr.encode_ints(ints("l4"))))
+out["u64"] = np.asarray(DensePolynomial.from_u64(inp["u64"]).z)
+merged = DensePolynomial.merge(
+    [DensePolynomial.from_ints(ints(k)) for k in ("m1", "m2", "m3")])
+out["merged"] = np.asarray(merged.z)
+lo, hi = p16.split(4)
+out["split_lo"], out["split_hi"] = np.asarray(lo.z), np.asarray(hi.z)
+out["item"] = np.array(str(p16[5]))
+read_ts, final_ts = _timestamps(jnp.asarray(inp["addrs"], dtype=jnp.int32), 16)
+out["read_ts"], out["final_ts"] = np.asarray(read_ts), np.asarray(final_ts)
+dense = DensifiedRepresentation(inp["nz"].tolist(), log_m=2, c=2)
+out["l_variate"] = np.asarray(dense.combined_l_variate_polys.z)
+out["log_m_variate"] = np.asarray(dense.combined_log_m_variate_polys.z)
+gp = GrandProductCircuit(JFr.encode_ints(ints("gp")))
+out["gp_root"] = np.array(str(gp.evaluate()))
+out["gp_layers"] = np.array(gp.num_layers)
+for t in range(gp.num_layers):
+    out[f"gp_left{t}"] = np.asarray(gp.left_vec(t))
+    out[f"gp_right{t}"] = np.asarray(gp.right_vec(t))
+"""
+
+
+def _poly_inputs():
+    rng = np.random.default_rng(31)
+    return {"z8": _strs(_ints(TFr, 8, 32)), "z16": _strs(_ints(TFr, 16, 33)),
+            "r4": _strs(_ints(TFr, 7, 34)[3:]),  # no edge values
+            "l4": _strs(_ints(TFr, 4, 35)),
+            "u64": rng.integers(0, 2**63, size=11, dtype=np.uint64),
+            "m1": _strs(_ints(TFr, 4, 36)), "m2": _strs(_ints(TFr, 4, 37)),
+            "m3": _strs(_ints(TFr, 4, 38)),
+            "addrs": rng.integers(0, 16, size=64),
+            # the reference's pinned instance (test_poly_densified.py)
+            "nz": np.array([[1, 2], [3, 0], [1, 2], [1, 1]]),
+            "gp": _strs(_ints(TFr, 11, 39)[3:])}
+
+
+def _check_poly(inp, ref):
+    """The port's DensePolynomial, evaluate_host, _timestamps,
+    DensifiedRepresentation and GrandProductCircuit against the JAX
+    package's (limbs and host ints, exactly) and against the host formulas
+    the reference's tests use."""
+    from lasso_tpu_torch.lasso.densified import (DensifiedRepresentation,
+                                                 _timestamps)
+    from lasso_tpu_torch.poly.dense import (DensePolynomial, eq_evals_host,
+                                            evaluate_host)
+    from lasso_tpu_torch.subprotocols.grand_product import GrandProductCircuit
+
+    p = TFr.host.p
+    ints = lambda key: [int(v) for v in inp[key]]  # noqa: E731
+    z8, z16, r4 = ints("z8"), ints("z16"), ints("r4")
+    rs = [TFr.encode_scalar(x, "cpu") for x in r4]
+
+    # bound_var_top / bound_var_bot (test_bound_var_top_bot)
+    p8 = DensePolynomial.from_ints(z8, "cpu")
+    top, bot = p8.bound_var_top(rs[0]), p8.bound_var_bot(rs[0])
+    _eq(top.z, ref["top"])
+    _eq(bot.z, ref["bot"])
+    r = r4[0]
+    assert top.to_ints() == [(z8[i] + r * (z8[i + 4] - z8[i])) % p
+                             for i in range(4)]
+    assert bot.to_ints() == [(z8[2 * i] + r * (z8[2 * i + 1] - z8[2 * i])) % p
+                             for i in range(4)]
+
+    # evaluate == <eq(r, .), z> (test_evaluate_matches_eq_dot)
+    p16 = DensePolynomial.from_ints(z16, "cpu")
+    _eq(p16.z, ref["z16"])
+    _eq(p16.evaluate_device(rs), ref["eval_device"])
+    want = sum(c * v for c, v in zip(eq_evals_host(r4), z16)) % p
+    assert p16.evaluate(r4) == evaluate_host(z16, r4) == want
+    assert want == int(ref["eval"]) == int(ref["eval_host"])
+
+    # evaluating == binding the variables top-down (test_evaluate_via_binds),
+    # and bottom-up at the reversed point
+    cur = p16
+    for x in rs:
+        cur = cur.bound_var_top(x)
+    _eq(cur.z, ref["via_binds"])
+    assert len(cur) == 1 and cur[0] == want
+    cur = p16
+    for x in reversed(rs):
+        cur = cur.bound_var_bot(x)
+    assert cur.to_ints() == [want]
+
+    # the Hyrax L-fold (test_bound_l_fold)
+    l4 = ints("l4")
+    fold = p16.bound(TFr.encode_ints(l4, "cpu"))
+    _eq(fold, ref["fold"])
+    assert TFr.decode(fold) == [sum(l4[i] * z16[i * 4 + j] for i in range(4)) % p
+                                for j in range(4)]
+
+    # from_u64 pads to a power of two; merge zero-pads the concatenation
+    # (test_merge_pads_pow2); split, clone and indexing are views
+    u64 = DensePolynomial.from_u64(inp["u64"], "cpu")
+    _eq(u64.z, ref["u64"])
+    assert u64.to_ints() == [int(v) for v in inp["u64"]] + [0] * 5
+    parts = [DensePolynomial.from_ints(ints(k), "cpu") for k in ("m1", "m2", "m3")]
+    merged = DensePolynomial.merge(parts)
+    _eq(merged.z, ref["merged"])
+    assert len(merged) == 16 and merged.num_vars == 4
+    vals = merged.to_ints()
+    assert vals[:4] == parts[0].to_ints() and vals[8:12] == parts[2].to_ints()
+    assert vals[12:] == [0, 0, 0, 0]
+    lo, hi = p16.split(4)
+    _eq(lo.z, ref["split_lo"])
+    _eq(hi.z, ref["split_hi"])
+    assert lo.to_ints() == z16[:4] and hi.to_ints() == z16[4:8]
+    twin = p16.clone()
+    assert twin is not p16 and torch.equal(twin.z, p16.z)
+    assert p16[5] == z16[5] == int(ref["item"])
+
+    # the sort/rank timestamps against the sequential counter loop
+    # (test_timestamps_match_sequential_reference, densified.rs:44-51)
+    addrs = [int(v) for v in inp["addrs"]]
+    counters, read_want = [0] * 16, []
+    for a in addrs:
+        read_want.append(counters[a])
+        counters[a] += 1
+    read_ts, final_ts = _timestamps(torch.as_tensor(inp["addrs"]), 16)
+    assert read_ts.tolist() == read_want == ref["read_ts"].tolist()
+    assert final_ts.tolist() == counters == ref["final_ts"].tolist()
+
+    # the reference's pinned densified instance
+    # (test_densified_shapes_and_values)
+    dense = DensifiedRepresentation(inp["nz"].tolist(), 2, 2, device="cpu")
+    assert (dense.s, dense.m, dense.c) == (4, 4, 2)
+    assert dense.dim[0].to_ints() == [1, 3, 1, 1]
+    assert dense.read[0].to_ints() == [0, 0, 1, 2]
+    assert dense.final[0].to_ints() == [0, 3, 0, 1]
+    assert len(dense.combined_l_variate_polys) == 16
+    assert len(dense.combined_log_m_variate_polys) == 8
+    _eq(dense.combined_l_variate_polys.z, ref["l_variate"])
+    _eq(dense.combined_log_m_variate_polys.z, ref["log_m_variate"])
+    merged = DensePolynomial.merge(dense.dim + dense.read)
+    assert torch.equal(merged.z, dense.combined_l_variate_polys.z)
+
+    # the single grand-product circuit (test_single_grand_product_circuit)
+    leaves = ints("gp")
+    gp = GrandProductCircuit(DensePolynomial.from_ints(leaves, "cpu"))
+    root = 1
+    for v in leaves:
+        root = root * v % p
+    assert gp.evaluate() == root == int(ref["gp_root"])
+    assert gp.num_layers == int(ref["gp_layers"]) == 3
+    assert gp.left_vec(0).shape == (4, 16)
+    assert GrandProductCircuit(TFr.encode_ints(leaves, "cpu")).evaluate() == root
+    for t in range(gp.num_layers):
+        _eq(gp.left_vec(t), ref[f"gp_left{t}"])
+        _eq(gp.right_vec(t), ref[f"gp_right{t}"])
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])

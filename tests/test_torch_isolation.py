@@ -70,6 +70,14 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     dense = DensifiedRepresentation([[1]] * 4, 4, 1, device="cpu")
     assert dense.combined_l_variate_polys.z.device.type == "cpu"
 
+    # the dense polynomial's constructors: the card by default, too
+    from lasso_tpu_torch.poly.dense import DensePolynomial
+
+    for make in (DensePolynomial.from_ints, DensePolynomial.from_u64):
+        with pytest.raises(RuntimeError):
+            make([1, 2, 3, 4])
+        assert make([1, 2, 3, 4], device="cpu").z.device.type == "cpu"
+
     # the multi-device entry points: no card, no CUDA mesh, no NCCL rank
     from lasso_tpu_torch import entry
     from lasso_tpu_torch.parallel.launch import spawn
