@@ -1,0 +1,69 @@
+"""`BENCHMARK.json` and the files it names, found by name.
+
+A cell's traffic is `benchmark/workloads/<cell>.json`, its configuration the
+`file` of its `configs` entry, and each per-layer metric the reader
+`benchmark/metrics/<metric>.py`.  A later change adds a cell or a metric by
+adding such files and an entry, and edits no file that is there.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+from dataclasses import dataclass
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MANIFEST = os.path.join(ROOT, "BENCHMARK.json")
+WORKLOADS = os.path.join(ROOT, "benchmark", "workloads")
+METRICS = os.path.join(ROOT, "benchmark", "metrics")
+
+
+@dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    workload: dict
+    end_to_end: list[dict]
+    per_layer: list[dict]
+
+
+def _load_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _applies(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load() -> dict:
+    return _load_json(MANIFEST)
+
+
+def cell(name: str, bench: dict | None = None) -> Cell:
+    bench = bench if bench is not None else load()
+    entry = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if entry is None:
+        raise KeyError(f"no workload {name!r} in {MANIFEST}")
+    conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    workload = _load_json(os.path.join(WORKLOADS, f"{name}.json"))
+    if workload.get("config") != entry["config"]:
+        raise ValueError(f"{name}.json names configuration "
+                         f"{workload.get('config')!r}, BENCHMARK.json "
+                         f"{entry['config']!r}")
+    return Cell(name, entry["chips"], _load_json(os.path.join(ROOT, conf["file"])),
+                workload,
+                [m for m in bench["end_to_end"] if _applies(m, name)],
+                [m for m in bench["per_layer"] if _applies(m, name)])
+
+
+def reader(metric: str):
+    """The `read(trace)` function of a per-layer metric."""
+    path = os.path.join(METRICS, f"{metric}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.metrics._{metric.replace('-', '_').replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
