@@ -8,8 +8,8 @@ Two suites mirroring the reference grids:
 Each config runs the full commit+prove+verify pass under named tracing spans
 and verifies the proof (benchmarks double as smoke tests, reference:
 bench.rs:67-70).  Every pass runs on `device`, the card unless the caller
-asks for the CPU; its times are the spans' wall times, which end in
-torch.cuda.synchronize() when the card is in use (utils/tracing.py).
+asks for the CPU; its times are the spans' wall times, each phase ending in
+a device synchronize when the card is in use.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from lasso_tpu_torch.subtables.base import SubtableStrategy, get_strategy
 from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
 from lasso_tpu_torch.transcript.random_tape import RandomTape
 from lasso_tpu_torch.utils.fixtures import gen_indices, gen_random_point
-from lasso_tpu_torch.utils.tracing import span
+from lasso_tpu_torch.utils.tracing import span, synchronize
 
 
 @dataclass
@@ -84,15 +84,22 @@ def single_pass_lasso(strategy_name: str, c: int, m: int, sparsity: int,
                       device="cuda", **kwargs) -> BenchResult:
     """One full commit+prove+verify pass (reference: single_pass_lasso!
     macro).  Raises if the proof does not verify."""
+    def sync():
+        if inst.dense.device.type == "cuda":
+            synchronize()
+
     with span(_pass_name(strategy_name, c, m, sparsity)):
         inst = make_instance(strategy_name, c, m, sparsity, device, **kwargs)
         with span("commit") as commit_span:
             commitment = inst.dense.commit(inst.gens)
+            sync()
         with span("prove") as prove_span:
             proof = prove(inst)
+            sync()
         with span("verify") as verify_span:
             proof.verify(commitment, inst.r, inst.gens,
                          ProofTranscript(b"example"))
+            sync()
     return BenchResult(inst.name, commit_span.duration, prove_span.duration,
                        verify_span.duration)
 

@@ -45,6 +45,7 @@ from lasso_tpu_torch.subtables.base import get_strategy
 from lasso_tpu_torch.transcript.proof_transcript import ProofTranscript
 from lasso_tpu_torch.transcript.random_tape import RandomTape
 from lasso_tpu_torch.utils.fixtures import gen_indices, gen_random_point
+from lasso_tpu_torch.utils import tracing
 from lasso_tpu_torch.utils.serialize import (serialize_commitment,
                                              serialize_proof)
 
@@ -89,7 +90,7 @@ def dryrun_spec(n_devices: int) -> Spec:
 
 def _sync(device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        tracing.synchronize(device)
 
 
 def _peak(device):

@@ -73,7 +73,7 @@ def _merged_flat(rows: list[torch.Tensor]) -> torch.Tensor:
 class DensifiedRepresentation:
     """dim/read/final counter polynomials + merged commitments."""
 
-    @instrument("Densify")
+    @instrument("Densify", sync=True)
     def __init__(self, indices, log_m: int, c: int, device="cuda"):
         """indices: [s_raw][C] lookup indices (host ints or numpy)."""
         device = resolve_device(device)

@@ -40,6 +40,7 @@ import time
 import torch
 
 from lasso_tpu_torch.field import tfield as _tf
+from lasso_tpu_torch.utils import tracing as _tracing
 
 W = _tf.W
 
@@ -54,7 +55,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FIELD_IDS = {"Fr": 0, "Fp": 1}
 
 # Kernel launches since the last reset: each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else, and counts it into the open span
+# while tracing counts (K1 mont_mul, K2 mont_mul_lm, K3 padd, K4 keccak).
 launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0, "keccak": 0}
 
 
@@ -268,6 +270,7 @@ def mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
         torch.cuda.current_stream(a.device).cuda_stream)
     _check_launch(rc, "mont_mul")
     launch_counts["mont_mul"] += 1
+    _tracing.count("k1")
     return out
 
 
@@ -309,6 +312,7 @@ def mont_mul_lm_cuda(a: torch.Tensor, b: torch.Tensor,
              FIELD_IDS[field], _raw_stream(a))
     _check_launch(rc, "mont_mul_lm")
     launch_counts["mont_mul_lm"] += 1
+    _tracing.count("k2")
     return out
 
 
@@ -330,6 +334,7 @@ def padd_cuda(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(p.device).cuda_stream)
     _check_launch(rc, "padd")
     launch_counts["padd"] += 1
+    _tracing.count("k3")
     return out
 
 
@@ -353,6 +358,7 @@ def keccak_cuda(states: torch.Tensor) -> torch.Tensor:
     rc = _K4(states.data_ptr(), count, _raw_stream(states))
     _check_launch(rc, "keccak")
     launch_counts["keccak"] += 1
+    _tracing.count("k4")
     return states
 
 

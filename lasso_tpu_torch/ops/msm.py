@@ -36,6 +36,7 @@ from lasso_tpu_torch.curve.tcurve import (from_host_points, identity, padd,
                                           pdbl, pneg, pselect, to_host_point,
                                           to_host_points, tree_sum)
 from lasso_tpu_torch.field.tfield import TFr, W, upload
+from lasso_tpu_torch.utils.tracing import instrument
 
 
 def window_plan(n: int, max_bits: int) -> tuple[int, int]:
@@ -343,6 +344,7 @@ MSM_HOST_MAX = 256
 VERIFY_CLZ_HOST_MAX = 8192
 
 
+@instrument("msm_device")
 def msm_device(points, scalars_mont, modulus_bits: int = 253,
                full_width: bool = False):
     """MSM with the reference's window policy.  points [4, W, n];
@@ -368,6 +370,7 @@ def msm_device(points, scalars_mont, modulus_bits: int = 253,
 MSM_CHUNK = 1 << 20
 
 
+@instrument("msm_chunks_device")
 def msm_chunks_device(points, scalars_mont, modulus_bits: int = 253):
     """Streaming MSM for huge inputs: 2^20-point chunks through the kernel,
     partial results tree-added."""
@@ -391,6 +394,7 @@ def msm(points, scalars_mont) -> hostcurve.Point:
 MSM_BATCH_COL_MAX = 1 << 12
 
 
+@instrument("msm_batch_device")
 def msm_batch_device(points, scalars_mont_rows, modulus_bits: int = 253,
                      row_chunk: int = 128):
     """Many MSMs sharing one basis (the Hyrax row-commit shape).

@@ -41,6 +41,7 @@ from lasso_tpu_torch.field.tfield import TFr, W
 from lasso_tpu_torch.ops import msm as _msm
 from lasso_tpu_torch.transcript.device_strobe import _post_challenge_meta
 from lasso_tpu_torch.utils.errors import InputTooLarge, InvalidInputLength
+from lasso_tpu_torch.utils.tracing import span
 
 
 def scalar_mul_batch(points, scalar: int):
@@ -108,42 +109,44 @@ def _device_dppl(dt, x0, b0, pd_bases, cy_bytes, beta_bytes, blind_x,
     bf = blind_gamma  # the blinds' running sum
     lr_xa, lr_ya = [], []
     for k in range(num_rounds):
-        m = n >> k
-        half = m >> 1
-        a_lo, a_hi, b_lo, b_hi = a[:half], a[half:], b[:half], b[half:]
-        c_lr = TFr.finish_sum(TFr.sum_columns(TFr.mul(
-            torch.stack([a_lo, a_hi], dim=1),
-            torch.stack([b_hi, b_lo], dim=1))))  # [2, W]: <a_lo,b_hi>, <a_hi,b_lo>
+        with span("Bullet.round"):
+            m = n >> k
+            half = m >> 1
+            a_lo, a_hi, b_lo, b_hi = a[:half], a[half:], b[:half], b[half:]
+            c_lr = TFr.finish_sum(TFr.sum_columns(TFr.mul(
+                torch.stack([a_lo, a_hi], dim=1),
+                torch.stack([b_hi, b_lo], dim=1))))  # [2, W]: <a_lo,b_hi>, <a_hi,b_lo>
 
-        # the delayed fold: basis j sits at position pj of this round's
-        # folded basis, in its upper half where hi
-        pj = idx & (m - 1)
-        hi = pj >= half
-        s_l = torch.where(hi[:, None], TFr.mul(w, a_lo[torch.where(
-            hi, pj - half, 0)]), 0)
-        s_r = torch.where(hi[:, None], 0, TFr.mul(w, a_hi[torch.where(
-            hi, 0, pj)]))
-        scalars = torch.stack([
-            torch.cat([s_l, c_lr[:1], blinds_l[k][None]]),
-            torch.cat([s_r, c_lr[1:], blinds_r[k][None]])])  # [2, n+2, W]
-        xa, ya, lr_bytes = _flat_msm_affine(pd_bases, scalars, c_w, n_w)
-        lr_xa.append(xa)
-        lr_ya.append(ya)
+            # the delayed fold: basis j sits at position pj of this round's
+            # folded basis, in its upper half where hi
+            pj = idx & (m - 1)
+            hi = pj >= half
+            s_l = torch.where(hi[:, None], TFr.mul(w, a_lo[torch.where(
+                hi, pj - half, 0)]), 0)
+            s_r = torch.where(hi[:, None], 0, TFr.mul(w, a_hi[torch.where(
+                hi, 0, pj)]))
+            scalars = torch.stack([
+                torch.cat([s_l, c_lr[:1], blinds_l[k][None]]),
+                torch.cat([s_r, c_lr[1:], blinds_r[k][None]])])  # [2, n+2, W]
+            xa, ya, lr_bytes = _flat_msm_affine(pd_bases, scalars, c_w, n_w)
+            lr_xa.append(xa)
+            lr_ya.append(ya)
 
-        dt.append_point_bytes(b"L", lr_bytes[0])
-        dt.append_point_bytes(b"R", lr_bytes[1])
-        u = dt.challenge_scalar(b"u")
-        assert dt.meta() == _post_challenge_meta(), \
-            "bullet round exit not canonical"
-        u_inv = TFr.inv_device(u)
-        uu = TFr.mul(torch.stack([u, u_inv]), torch.stack([u, u_inv]))
+            dt.append_point_bytes(b"L", lr_bytes[0])
+            dt.append_point_bytes(b"R", lr_bytes[1])
+            u = dt.challenge_scalar(b"u")
+            assert dt.meta() == _post_challenge_meta(), \
+                "bullet round exit not canonical"
+            with span("Bullet.inv_device"):
+                u_inv = TFr.inv_device(u)
+            uu = TFr.mul(torch.stack([u, u_inv]), torch.stack([u, u_inv]))
 
-        a = TFr.add(TFr.mul(a_lo, u), TFr.mul(a_hi, u_inv))
-        b = TFr.add(TFr.mul(b_lo, u_inv), TFr.mul(b_hi, u))
-        w = TFr.mul(w, torch.where(hi[:, None], u, u_inv))
-        # blind_fin += blind_l * u^2 + blind_r * u^-2
-        blr = TFr.mul(torch.stack([blinds_l[k], blinds_r[k]]), uu)
-        bf = TFr.add(bf, TFr.add(blr[0], blr[1]))
+            a = TFr.add(TFr.mul(a_lo, u), TFr.mul(a_hi, u_inv))
+            b = TFr.add(TFr.mul(b_lo, u_inv), TFr.mul(b_hi, u))
+            w = TFr.mul(w, torch.where(hi[:, None], u, u_inv))
+            # blind_fin += blind_l * u^2 + blind_r * u^-2
+            blr = TFr.mul(torch.stack([blinds_l[k], blinds_r[k]]), uu)
+            bf = TFr.add(bf, TFr.add(blr[0], blr[1]))
 
     # delta = g_hat*d + h*r_delta with g_hat = MSM(G, w): one MSM over
     # (G ++ q ++ h) with scalars (d*w, 0, r_delta)

@@ -226,7 +226,7 @@ class DotProductProofLog:
         return proof, pts[0], cy
 
     @staticmethod
-    @instrument("DotProductProofLog.prove")
+    @instrument("DotProductProofLog.prove", sync=True)
     def prove(gens: DotProductProofGens, transcript, random_tape,
               x_dev, blind_x: int, a_dev, y: int, blind_y: int,
               a_host=None):

@@ -37,7 +37,7 @@ from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
                                                       _post_challenge_meta,
                                                       scalar_bytes)
 from lasso_tpu_torch.utils.errors import LassoError
-from lasso_tpu_torch.utils.tracing import instrument
+from lasso_tpu_torch.utils.tracing import instrument, span
 
 
 def _layer_product(vals):
@@ -239,7 +239,7 @@ class BatchedGrandProductArgument:
     proof: list[LayerProofBatched]
 
     @staticmethod
-    @instrument("BatchedGrandProductArgument.prove")
+    @instrument("BatchedGrandProductArgument.prove", sync=True)
     def prove(circuits, transcript):
         """Returns (argument, rand).  `circuits` is a
         BatchedGrandProductCircuit or a ShardedBatchedGPCircuit; the
@@ -361,22 +361,28 @@ def _prove_layers_device(circuits: BatchedGrandProductCircuit, dt):
     rand: list[torch.Tensor] = []
     out = []
     for layer_id in range(num_layers - 1, -1, -1):
-        coeffs = torch.stack([dt.challenge_scalar(b"rand_coeffs_next_layer")
-                              for _ in range(i_cnt)])  # [I, W]
-        claim = TFr.finish_sum(TFr.sum_columns(TFr.mul(coeffs, claims)))
-        eq_poly = eq_evals_device(rand, device)
-        a, b, _, rows, rs = _cubic_rounds_device(
-            dt, circuits.left_layers[layer_id],
-            circuits.right_layers[layer_id], eq_poly, claim, coeffs, len(rand))
-        left, right = a[:, 0], b[:, 0]  # [I, W]
-        lb, rb = scalar_bytes(left), scalar_bytes(right)
-        for i in range(i_cnt):
-            dt.append_message_dynamic(b"claim_prod_left", lb[i])
-            dt.append_message_dynamic(b"claim_prod_right", rb[i])
-        r_layer = dt.challenge_scalar(b"challenge_r_layer")
-        assert dt.meta() == _post_challenge_meta(), \
-            "strobe layer exit not canonical"
-        claims = TFr.add(left, TFr.mul(r_layer, TFr.sub(right, left)))
+        with span("GP.layer"):
+            coeffs = torch.stack([
+                dt.challenge_scalar(b"rand_coeffs_next_layer")
+                for _ in range(i_cnt)])  # [I, W]
+            claim = TFr.finish_sum(TFr.sum_columns(TFr.mul(coeffs, claims)))
+            with span("GP.eq_table"):
+                eq_poly = eq_evals_device(rand, device)
+            with span("GP.cubic_rounds"):
+                a, b, _, rows, rs = _cubic_rounds_device(
+                    dt, circuits.left_layers[layer_id],
+                    circuits.right_layers[layer_id], eq_poly, claim, coeffs,
+                    len(rand))
+            with span("GP.claims_and_challenge"):
+                left, right = a[:, 0], b[:, 0]  # [I, W]
+                lb, rb = scalar_bytes(left), scalar_bytes(right)
+                for i in range(i_cnt):
+                    dt.append_message_dynamic(b"claim_prod_left", lb[i])
+                    dt.append_message_dynamic(b"claim_prod_right", rb[i])
+                r_layer = dt.challenge_scalar(b"challenge_r_layer")
+                assert dt.meta() == _post_challenge_meta(), \
+                    "strobe layer exit not canonical"
+                claims = TFr.add(left, TFr.mul(r_layer, TFr.sub(right, left)))
         rand = [r_layer] + rs
         out += rows + [left, right]
     return torch.cat(out + [torch.stack(rand)])

@@ -44,7 +44,7 @@ from lasso_tpu_torch.transcript.device_strobe import (DeviceTranscript,
                                                       _post_challenge_meta,
                                                       scalar_bytes)
 from lasso_tpu_torch.utils.errors import LassoError
-from lasso_tpu_torch.utils.tracing import instrument
+from lasso_tpu_torch.utils.tracing import instrument, span
 
 
 def _log2(n: int) -> int:
@@ -244,13 +244,17 @@ def _cubic_rounds_device(dt, a, b, c, e, rlc, num_rounds: int):
     challenges [W])."""
     rows, rs = [], []
     for _ in range(num_rounds):
-        ev = _cubic_round_evals(a, b, c)  # [3, I, W]
-        comb = TFr.finish_sum(TFr.sum_columns(
-            TFr.mul(ev, rlc[None]).movedim(1, 0)))  # [3, W]: t = 0, 2, 3
-        evals = torch.stack([comb[0], TFr.sub(e, comb[0]), comb[1], comb[2]])
-        coeffs, r = _device_round(dt, evals, 3)
-        a, b, c = _bind_top(a, r), _bind_top(b, r), _bind_top_single(c, r)
-        e = _horner(coeffs, r)
+        with span("Sumcheck.cubic_evals"):
+            ev = _cubic_round_evals(a, b, c)  # [3, I, W]
+            comb = TFr.finish_sum(TFr.sum_columns(
+                TFr.mul(ev, rlc[None]).movedim(1, 0)))  # [3, W]: t = 0, 2, 3
+            evals = torch.stack([comb[0], TFr.sub(e, comb[0]), comb[1],
+                                 comb[2]])
+        with span("Sumcheck.interpolate_and_challenge"):
+            coeffs, r = _device_round(dt, evals, 3)
+        with span("Sumcheck.bind"):
+            a, b, c = _bind_top(a, r), _bind_top(b, r), _bind_top_single(c, r)
+            e = _horner(coeffs, r)
         rows += [coeffs, r[None]]
         rs.append(r)
     return a, b, c, rows, rs
