@@ -21,7 +21,15 @@ Phases, in order; each prints one line and any failure exits non-zero:
      tampered proof, check the l-variate commitment rows against the host
      Pippenger, and profile one more prove for the card's busy share;
   6. each kernel held against its plain version at the main path's own
-     dominant shape;
+     dominant shape; then K5 (field add/sub, column sums and their finish)
+     against its plain version on the same card inputs, Fr and Fp, limb for
+     limb, at the prove's shapes: add and sub of the halves of [2, 2^16, 16]
+     and [16, 2^16, 16] (strided views, read in place), of [2^15, 16] and
+     one broadcast [16] element on either side, of odd n = 2^15 + 3 and of
+     n = 1, with the edge values 0, 1 and p-1; the column sums of [2^15, 16]
+     (its value also against the host) and of the transposed [2^15, 16, 16]
+     products, and their finish; each timed (Fr) on copies of its inputs
+     taken in turn, enough that a loop reads three times the L2;
   7. K2 (limb-major Montgomery multiply) against its plain version and the
      host oracle, Fr and Fp, K=4 stacked operands of n = 2^20 and a
      broadcast [16, 1] constant; then at n = 1, K = 1 and ragged n (one
@@ -31,8 +39,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
   8. the bench CLI's main path on the unfused curve configuration
      (LASSO_TPU_PALLAS_PADD=0): `lasso_tpu_torch.cli` jolt-demo, AND, C=8,
      M=2^16, s=2^16, with launch counts (K2 > 0, K3 = 0) and its spans; then
-     the same instance proven once unfused and once fused, whose proof and
-     commitment bytes must be identical, and one more fused prove under
+     the same instance proven once unfused and once fused (each launching
+     K5), whose proof and commitment bytes must be identical, and one more fused prove under
      the profiler for the card's busy share and K1's and K3's launches,
      device time and dominant shapes; K1 and K3 held against their plain
      versions at those shapes;
@@ -58,7 +66,7 @@ Phases, in order; each prints one line and any failure exits non-zero:
      and (b) four gloo ranks sharing it, each rank densifying, committing
      and proving twice (the second timed); every rank's proof and
      commitment bytes must equal phase 5's, rank 0's single-device verify
-     must accept, and every rank's prove must launch K1, K3 and K4.  Each
+     must accept, and every rank's prove must launch K1, K3, K4 and K5.  Each
      rank's peak device memory is printed twice: from its densify on
      (every rank densifies the whole instance) and from its shard's commit
      on.  Four ranks on one card check correctness and per-rank dispatch,
@@ -86,8 +94,9 @@ loop of wrapper calls, which includes the wrapper's host work and measures
 that instead when the kernel is shorter.  `bound_ms` is the larger of the
 bytes over the memory rate and the 32-bit integer instructions the function
 needs (multiplies for K1-K3, logic operations for K4, which issue at the
-same rate) over the card's rate for them.  K4 also gets `latency_bound_ms`,
-its 24 dependent rounds' shortest instruction chain.
+same rate) over the card's rate for them; K5's is its bytes alone, a
+broadcast operand counted once.  K4 also gets `latency_bound_ms`, its 24
+dependent rounds' shortest instruction chain.
 
 Needs one CUDA card; it imports nothing of JAX or of the JAX package.
 """
@@ -96,6 +105,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -104,8 +114,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM memory rate (NVIDIA data sheet)
+# published H100 SXM memory rate and L2 size (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 # 32-bit integer multiplies issue at 64 per clock per SM on compute
 # capability 9.0 (CUDA C Programming Guide, arithmetic instruction
 # throughput); main() sets the rate from the card's SM count and maximum SM
@@ -159,6 +170,12 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_launches(counts) -> int:
+    """K5's launches among a prove's launch counts: add/sub, sums and
+    finishes."""
+    return counts["field_addsub"] + counts["field_sum"]
 
 
 def walk_into(totals, sp) -> None:
@@ -366,6 +383,7 @@ def main() -> int:
                                                       host_loop_ms, lm_plain)
     from lasso_tpu_torch.curve import tcurve
     from lasso_tpu_torch.curve.host import GENERATOR, Point, msm_host
+    from lasso_tpu_torch.field import tfield
     from lasso_tpu_torch.field.tfield import TFp, TFr, unpack_ints
     from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
     from lasso_tpu_torch.lasso.surge import (SparsePolyCommitmentGens,
@@ -621,7 +639,8 @@ def main() -> int:
     for root in tracing.span_tree():
         walk_into(spans, root)
     if min(prove_counts["mont_mul"], prove_counts["padd"],
-           prove_counts["keccak"]) <= 0:
+           prove_counts["keccak"], prove_counts["field_addsub"],
+           prove_counts["field_sum"]) <= 0:
         fail(f"flagship prove did not launch every kernel: {prove_counts}")
 
     field_cuda.reset_launch_counts()
@@ -754,6 +773,121 @@ def main() -> int:
           f"K3={len(shapes['padd'])} k3_most_called="
           f"{[[list(k), c] for k, c in shapes['padd'].most_common(4)]}",
           flush=True)
+
+    # K5 at the prove's shapes: the halves of [2, 2^16, 16] and [16, 2^16,
+    # 16] (the grand products' binds and round evals, read in place), one
+    # broadcast [16] element, odd n and n = 1; column sums of [2^15, 16] and
+    # of the transposed [2^15, 16, 16] products, and their finish
+    k5_err = 0
+
+    def rotated(fn, make, nbytes):
+        """A call of fn on the inputs make() returns, made afresh up to 64
+        times and taken in turn over calls: enough copies that a timed loop
+        reads three L2 caches' worth, so that each call reads memory."""
+        copies = [make() for _ in range(min(64, -(-3 * L2_BYTES // nbytes)))]
+        cyc = itertools.cycle(copies)
+        return lambda: fn(*next(cyc))
+
+    def k5_check(got, want, what):
+        nonlocal k5_err
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        k5_err = max(k5_err, err)
+        if err:
+            fail(f"K5 {what}: differs from plain by {err}")
+
+    def k5_addsub(field, make, what, timed_too):
+        """K5's add and sub of the operands make() returns against the plain
+        version on the same inputs, both orders where one broadcasts; then
+        timed on fresh copies, the same views (Fr)."""
+        c = field.consts(dev)
+        a, b = make()
+        texts = []
+        for sub in (False, True):
+            plain = tfield._sub_plain if sub else tfield._add_plain
+            for x, y in ((a, b), (b, a)) if b.dim() == 1 else ((a, b),):
+                k5_check(field_cuda.add_sub_cuda(x, y, sub, field.name),
+                         plain(x, y, c), f"{field.name} {what} sub={sub}")
+            if not timed_too:
+                continue
+            # bytes moved: each operand read once (a broadcast one once in
+            # all), the result written once
+            nbytes = (a.numel() + b.numel()
+                      + torch.broadcast_shapes(a.shape, b.shape).numel()) * 4
+            call = rotated(lambda x, y: field_cuda.add_sub_cuda(  # noqa: B023
+                x, y, sub, field.name), make, nbytes)
+            texts.append(f"{what} {'sub' if sub else 'add'} " + record(
+                "field_arith", ["sub" if sub else "add", what, field.name],
+                device_ms(call, 100, "field_addsub_kernel"),
+                host_loop_ms(call, 50),
+                host_loop_ms(lambda: plain(a, b, c), 10),  # noqa: B023
+                nbytes, 0))
+        return texts
+
+    k5_lines = []
+    for field in (TFr, TFp):
+        for rows in (2, 16):
+            st = torch.as_tensor(random_limbs(rng, rows << 16, field),
+                                 device=dev).reshape(rows, 1 << 16, W)
+            k5_lines += k5_addsub(
+                field, lambda t=st: (lambda u: (u[:, 1 << 15:], u[:, :1 << 15]))(
+                    t.clone()), f"halves of [{rows},2^16,16]", field is TFr)
+        for n in (1 << 15, (1 << 15) + 3, 1):
+            a = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+            b = torch.as_tensor(random_limbs(rng, n, field), device=dev)
+            if n >= 9:  # every edge value of a against every one of b
+                a[3:9] = a[[0, 1, 2, 0, 1, 2]]
+                b[3:9] = b[[1, 2, 0, 2, 0, 1]]
+            if n == 1 << 15:
+                b, what = b[2], "[2^15,16] and one [16]"
+            else:
+                what = f"[{n},16] and [{n},16]"
+            k5_lines += k5_addsub(
+                field, lambda a=a, b=b: (a.clone(), b.clone()), what,
+                field is TFr)
+
+        prods = torch.as_tensor(random_limbs(rng, 16 << 15, field),
+                                device=dev).reshape(16, 1 << 15, W)
+        for x, what in ((prods[0], "[2^15,16]"),
+                        (prods.movedim(1, 0), "[2^15,16,16] (transposed)")):
+            n, m = x.shape[0], x.numel() // (x.shape[0] * W)
+            cols = field_cuda.sum_columns_cuda(x)
+            k5_check(cols, tfield._sum_columns_plain(x),
+                     f"{field.name} column sum {what}")
+            got = field_cuda.finish_sum_cuda(cols, field.name)
+            k5_check(got, tfield._finish_sum_plain(field, cols),
+                     f"{field.name} finish of {what}")
+            if m == 1:  # the value, against the host
+                want = sum(unpack_ints(x)) % field.host.p
+                if unpack_ints(got.reshape(1, W)) != [want]:
+                    fail(f"K5 {field.name} sum {what}: differs from the host")
+            if field is not TFr:
+                continue
+            # bytes moved: the rows read once, the wide columns written once
+            nbytes = n * m * W * 4 + m * (W + 3) * 8
+            # (a clone keeps the transposed view's strides)
+            call = rotated(field_cuda.sum_columns_cuda,
+                           lambda x=x: (x.clone(),), nbytes)
+            k5_lines.append(f"column sum of {what} " + record(
+                "field_arith", ["sum", what, field.name],
+                device_ms(call, 100, "field_sum_kernel"),
+                host_loop_ms(call, 50),
+                host_loop_ms(lambda: tfield._sum_columns_plain(x),  # noqa: B023
+                             10), nbytes, 0))
+            # the wide columns read once, the elements written once
+            nbytes = m * ((W + 3) * 8 + W * 4)
+            call = rotated(lambda w: field_cuda.finish_sum_cuda(  # noqa: B023
+                w, field.name), lambda w=cols: (w.clone(),), nbytes)
+            k5_lines.append(f"finish of {what} " + record(
+                "field_arith", ["finish", what, field.name],
+                device_ms(call, 100, "field_finish_kernel"),
+                host_loop_ms(call, 50),
+                host_loop_ms(lambda: tfield._finish_sum_plain(  # noqa: B023
+                    field, cols), 10), nbytes, 0))
+        del st, a, b, prods, x, cols, got
+    k5_main = timed["field_arith"][0]
+    print(f"phase 6 [{elapsed()}] K5 (Fr and Fp, add and sub, both orders "
+          f"of a broadcast element) equal=True max_abs_err={k5_err}; timed "
+          f"Fr: " + "; ".join(k5_lines), flush=True)
 
     # -- 7. K2 against its plain version ---------------------------------------
     def limb_major(field, k, n, elems=None):
@@ -943,8 +1077,10 @@ def main() -> int:
         jd_prof_ms = (time.perf_counter() - t0) * 1e3
     field_cuda.mont_mul_cuda, field_cuda.padd_cuda = orig_mm, orig_pa
     jd_counts = dict(field_cuda.launch_counts)
-    if jd_counts["mont_mul"] <= 0 or jd_counts["padd"] <= 0:
-        fail(f"fused jolt-demo prove did not launch K1 and K3: {jd_counts}")
+    if min(jd_counts["mont_mul"], jd_counts["padd"],
+           jd_counts["field_addsub"], jd_counts["field_sum"]) <= 0:
+        fail(f"fused jolt-demo prove did not launch K1, K3 and K5: "
+             f"{jd_counts}")
     jd_kernels = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     jd_busy_ms = sum(device_us(e) for e in jd_kernels) / 1e3
@@ -976,7 +1112,8 @@ def main() -> int:
     if runs["unfused"]["entry"] != runs["fused"]["entry"]:
         fail(f"jolt-demo: unfused and fused bytes differ: {runs}")
     u_counts = runs["unfused"]["prove_launches"]
-    if u_counts["mont_mul_lm"] <= 0 or u_counts["padd"] != 0:
+    if (min(u_counts["mont_mul_lm"], u_counts["field_addsub"],
+            u_counts["field_sum"]) <= 0 or u_counts["padd"] != 0):
         fail(f"jolt-demo unfused prove: wrong kernels {u_counts}")
     for label, run in runs.items():
         print(f"phase 8 [{elapsed()}] jolt-demo {label}: commit_s={run['commit_s']:.3f} "
@@ -1197,8 +1334,9 @@ def main() -> int:
             if (res["proof"], res["commitment"]) != want:
                 fail(f"phase 11 {label}: rank {rank}'s proof or commitment "
                      "bytes differ from phase 5's")
-            if min(res["launches"][k] for k in ("mont_mul", "padd",
-                                                "keccak")) <= 0:
+            if min(res["launches"][k] for k in (
+                    "mont_mul", "padd", "keccak", "field_addsub",
+                    "field_sum")) <= 0:
                 fail(f"phase 11 {label}: rank {rank} launches "
                      f"{res['launches']}")
             per_rank.append({
@@ -1210,10 +1348,11 @@ def main() -> int:
                     res["shard_peak_mem_bytes"] / 2**30, 3)})
         if not results[0][0]["verified"]:
             fail(f"phase 11 {label}: rank 0 did not verify")
-        for k in ("mont_mul", "padd", "keccak"):
+        for k in ("mont_mul", "padd", "keccak", "field_arith"):
             sharded_launches.setdefault(k, {})[
                 f"flagship_sharded_{label}_prove_per_rank"] = [
-                    r["launches"][k] for r in per_rank]
+                    k5_launches(r["launches"]) if k == "field_arith"
+                    else r["launches"][k] for r in per_rank]
         print(f"phase 11 [{elapsed()}] flagship sharded {label} "
               f"(backend={backend}, ranks={ranks}, all on cuda:0): "
               f"spawn_s={spawn_s:.1f} proof_sha256="
@@ -1273,8 +1412,15 @@ def main() -> int:
                     "jolt_demo_fused_prove": jd_counts["keccak"],
                     "jolt_demo_unfused_cli_pass": cli_counts["keccak"],
                     **k4_launches, **sharded_launches["keccak"]}),
+        kernel_row("field_arith (K5)", "lasso_tpu_torch/csrc/field_arith.cu",
+                   "none: the reference leaves these chains to XLA",
+                   k5_launches(prove_counts), k5_err, k5_main,
+                   {"flagship_prove": k5_launches(prove_counts),
+                    "jolt_demo_fused_prove": k5_launches(jd_counts),
+                    "jolt_demo_unfused_prove": k5_launches(u_counts),
+                    **sharded_launches["field_arith"]}),
     ]}
-    kernels["kernels"][-1]["latency_bound_ms"] = k4_main["latency_bound_ms"]
+    kernels["kernels"][-2]["latency_bound_ms"] = k4_main["latency_bound_ms"]
     print(json.dumps(kernels), flush=True)
     print(f"card: {card_line()} total_s={time.perf_counter() - t_start:.1f}",
           flush=True)

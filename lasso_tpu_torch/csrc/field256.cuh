@@ -19,7 +19,8 @@
 //   - f256::dev: device-only, on PTX carry chains (mad.lo.cc / madc.hi.cc /
 //     addc.cc), seen only by nvcc.  K1 and K2 (Fr) use dev::mont_mul; K2
 //     (Fp) uses dev::mont_mul_p25519 and K3 dev::P25519Ops, whose products
-//     reduce with p = 2^255 - 19's form.
+//     reduce with p = 2^255 - 19's form; K5's add/sub use dev::add_mod and
+//     dev::sub_mod for both fields.
 // Both give the same canonical words for the same inputs.
 
 #pragma once
@@ -437,6 +438,204 @@ F256_HD LmLaunch lm_launch(uint32_t total, uint32_t n, bool pairs_ok, int sms,
   const int cols = pairs ? 2 : 1;
   const uint32_t groups = total / cols;
   return LmLaunch{cols, groups, (groups + threads - 1) / threads};
+}
+
+// ---------------------------------------------------------------------------
+// K5's work, one thread's share (the kernels are in field_arith.cu).
+//
+// Add and sub: element (o, i) of an operand's logical [outer, inner] batch
+// sits o * s0 + i * s1 int32s from its base, its 16 limbs contiguous and
+// 16-byte aligned (a broadcast axis has stride 0), so half views
+// x[:, :h] of a contiguous [I, n, 16] tensor and one broadcast [16]
+// element are read in place.  The output is contiguous.
+//
+// Column sums: exact per-limb sums of [n, m, 16] limbs (rows at stride sn,
+// column sets at stride sm), split by rows over up to kMaxSplits blocks per
+// column set, then tfield._split_shift three times: [m, 19] int64 columns,
+// equal limb for limb to the plain version's.
+//
+// Finish: wide columns (value V < R*p, each column in [0, 2^48)) -> the
+// canonical limbs of V mod p, which is what the plain version's REDC and
+// product with R^2 give.
+// ---------------------------------------------------------------------------
+
+constexpr int kWide = 19;      // limbs of a column sum: 16 + 3 splits
+constexpr int kMaxWide = 33;   // widest column set a finish takes (2W + 1)
+constexpr int kMaxSplits = 8;  // blocks per column set: a portable cluster
+
+// 16 contiguous, 16-byte aligned limbs -> 8 words (four 16-byte loads on
+// the card).
+F256_HD void load16_vec(uint32_t w[N], const int32_t* src) {
+#ifdef __CUDA_ARCH__
+  const int4* p = reinterpret_cast<const int4*>(src);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int4 v = __ldg(p + c);
+    w[2 * c] = ((uint32_t)v.x & 0xffffu) | ((uint32_t)v.y << 16);
+    w[2 * c + 1] = ((uint32_t)v.z & 0xffffu) | ((uint32_t)v.w << 16);
+  }
+#else
+  load16(w, src, 1);
+#endif
+}
+
+F256_HD void store16_vec(int32_t* dst, const uint32_t w[N]) {
+#ifdef __CUDA_ARCH__
+  int4* p = reinterpret_cast<int4*>(dst);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    p[c] = make_int4((int32_t)(w[2 * c] & 0xffffu), (int32_t)(w[2 * c] >> 16),
+                     (int32_t)(w[2 * c + 1] & 0xffffu),
+                     (int32_t)(w[2 * c + 1] >> 16));
+  }
+#else
+  store16(dst, w, 1);
+#endif
+}
+
+// Offset of flat element e of a strided [outer, inner] batch.
+F256_HD int64_t strided_at(uint32_t e, uint32_t inner, int64_t s0,
+                           int64_t s1) {
+  const uint32_t o = e / inner;
+  return (int64_t)o * s0 + (int64_t)(e - o * inner) * s1;
+}
+
+// out[e] = a[e] + b[e] or a[e] - b[e] mod p, through Ops::add / Ops::sub.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ops, bool kSub>
+F256_HD void addsub_element(const int32_t* a, const int32_t* b, int32_t* out,
+                            uint32_t e, uint32_t inner, int64_t sa0,
+                            int64_t sa1, int64_t sb0, int64_t sb1,
+                            const Modulus& m) {
+  uint32_t x[N], y[N], z[N];
+  load16_vec(x, a + strided_at(e, inner, sa0, sa1));
+  load16_vec(y, b + strided_at(e, inner, sb0, sb1));
+  if (kSub) {
+    Ops::sub(z, x, y, m);
+  } else {
+    Ops::add(z, x, y, m);
+  }
+  store16_vec(out + (size_t)e * 16, z);
+}
+
+// K5's grid for the column sums of m sets of n rows: `threads` per block,
+// four to a row (one 16-byte chunk, four limbs, each), from one warp up to
+// 1024; `splits` blocks per set, each over its own range of rows (one
+// cluster), where the sets alone would not give each of the `sms` SMs two
+// blocks and every split still has four rows per thread group.
+struct SumLaunch {
+  int threads, splits;
+};
+
+F256_HD SumLaunch sum_launch(int64_t n, int64_t m, int sms) {
+  int threads = 32;
+  while (threads < 1024 && threads < 4 * n) threads *= 2;
+  int64_t splits = 1;
+  if (m < 2 * (int64_t)sms) {
+    splits = (2 * (int64_t)sms + m - 1) / m;
+    const int64_t by_rows = n / threads;  // 4 rows per thread group
+    if (splits > by_rows) splits = by_rows;
+    if (splits > kMaxSplits) splits = kMaxSplits;
+    if (splits < 1) splits = 1;
+  }
+  return SumLaunch{threads, (int)splits};
+}
+
+// Rows [begin, end) of split s of n.
+F256_HD void split_rows(int64_t n, int splits, int s, int64_t* begin,
+                        int64_t* end) {
+  *begin = n * s / splits;
+  *end = n * (s + 1) / splits;
+}
+
+// Four contiguous, 16-byte aligned limbs.
+F256_HD void load4(uint32_t v[4], const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+  v[0] = (uint32_t)x.x, v[1] = (uint32_t)x.y, v[2] = (uint32_t)x.z;
+  v[3] = (uint32_t)x.w;
+#else
+  for (int k = 0; k < 4; ++k) v[k] = (uint32_t)p[k];
+#endif
+}
+
+// Thread t's share of rows [begin, end) of one column set (base: its row
+// 0): rows begin + t/4, begin + t/4 + threads/4, ..., chunk t % 4, summed
+// into acc (limbs 4 * (t % 4) ...).
+F256_HD void sum_rows(uint64_t acc[4], const int32_t* base, int64_t sn,
+                      int64_t begin, int64_t end, int t, int threads) {
+  const int32_t* p = base + 4 * (t & 3);
+  const int64_t step = threads / 4;
+#pragma unroll 4
+  for (int64_t r = begin + t / 4; r < end; r += step) {
+    uint32_t v[4];
+    load4(v, p + r * sn);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] += v[k];
+  }
+}
+
+// tfield._split_shift three times on one set's 16 exact limb sums.
+F256_HD void wide_columns(int64_t out[kWide], const uint64_t sums[16]) {
+  int64_t c[kWide];
+  for (int j = 0; j < kWide; ++j) c[j] = j < 16 ? (int64_t)sums[j] : 0;
+  for (int width = 16; width < kWide; ++width) {
+    for (int j = width; j >= 0; --j) {
+      c[j] = (j < width ? (c[j] & 0xffff) : 0) + (j > 0 ? c[j - 1] >> 16 : 0);
+    }
+  }
+  for (int j = 0; j < kWide; ++j) out[j] = c[j];
+}
+
+// R^2 mod p, the factor that turns REDC's V * R^-1 back into V.
+F256_HD void r2_words(uint32_t r2[N], int field) {
+  const uint32_t fr[N] = {0x449c0f01u, 0xa40611e3u, 0x68859347u, 0xd00e1ba7u,
+                          0x17f5be65u, 0xceec73d2u, 0x7c309a3du, 0x0399411bu};
+  for (int i = 0; i < N; ++i) r2[i] = field == 0 ? fr[i] : (i == 0 ? 0x5a4u : 0);
+}
+
+// V mod p of `width` <= kMaxWide wide columns, V = sum_j cols[j] * 2^(16j)
+// < R*p, each column in [0, 2^48): V as 2N + 2 words, word-by-word REDC
+// (V * R^-1 mod p, below 2p, one conditional subtract), then the product
+// with R^2 mod p through Ops::mul.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ops>
+F256_HD void finish_wide(uint32_t out[N], const int64_t* cols, int width,
+                         const Modulus& m, int field) {
+  constexpr int kWords = 2 * N + 2;
+  uint32_t t[kWords];
+  uint64_t carry = 0;  // < 2^34
+  for (int k = 0; k < kWords; ++k) {
+    const uint64_t lo = 2 * k < width ? (uint64_t)cols[2 * k] : 0;
+    const uint64_t hi = 2 * k + 1 < width ? (uint64_t)cols[2 * k + 1] : 0;
+    const uint64_t s = carry + (lo & 0xffffffffu) + ((hi & 0xffffu) << 16);
+    t[k] = (uint32_t)s;
+    carry = (s >> 32) + (lo >> 32) + (hi >> 16);
+  }
+  for (int i = 0; i < N; ++i) {
+    const uint32_t q = t[i] * m.n0;
+    uint64_t c = 0;
+    for (int j = 0; j < N; ++j) {
+      const uint64_t s = (uint64_t)q * m.p[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    for (int j = i + N; j < kWords && c; ++j) {
+      const uint64_t s = (uint64_t)t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+  }
+  uint32_t r[N], x[N], r2[N];
+  const uint32_t borrow = sub_words(r, t + N, m.p);
+  const bool take = (t[2 * N] != 0) || (borrow == 0);
+  for (int i = 0; i < N; ++i) x[i] = take ? r[i] : t[N + i];
+  r2_words(r2, field);
+  Ops::mul(out, x, r2, m);
 }
 
 #ifdef __CUDACC__

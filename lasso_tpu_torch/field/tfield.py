@@ -9,8 +9,11 @@ uint32 add, shift or comparison).
 `mul` is the Montgomery product of ops/field_cuda.py: the hand-written CUDA
 kernel K1 for CUDA tensors, its plain PyTorch version for CPU tensors;
 `mul_lm` is the same product on limb-major tensors, through kernel K2.
-Everything else here (additions, carries, reductions, the REDC of a wide
-sum) is plain PyTorch, as it is plain XLA in the reference.
+`add`, `sub`, `neg`, `sum_columns` and `finish_sum` take kernel K5 for CUDA
+tensors (one launch a call) and the plain PyTorch code here for CPU
+tensors (`_add_plain`, `_sub_plain`, `_sum_columns_plain`,
+`_finish_sum_plain`), as it is plain XLA in the reference.  The rest
+(`canon_wide`, the REDC of the plain product) is plain PyTorch.
 
 Carry and borrow chains use a carry-lookahead over the limb axis instead of
 a 16-step ripple: for limbs that each emit at most one carry (or borrow),
@@ -164,12 +167,12 @@ def _cond_sub(x, m):
     return torch.where((borrow == 0)[..., None], d, x)
 
 
-def _add(a, b, c: "_Consts"):
+def _add_plain(a, b, c: "_Consts"):
     s, _ = _ripple_add(a.to(torch.int64) + b.to(torch.int64))
     return _cond_sub(s, c.p64).to(torch.int32)
 
 
-def _sub(a, b, c: "_Consts"):
+def _sub_plain(a, b, c: "_Consts"):
     d, borrow = _ripple_sub(a.to(torch.int64) - b.to(torch.int64))
     back, _ = _ripple_add(d + c.p64)
     return torch.where((borrow == 1)[..., None], back, d).to(torch.int32)
@@ -238,6 +241,7 @@ class _Consts:
 
     def __init__(self, f: "TField", device):
         self.device = device
+        self.zero = torch.zeros(W, dtype=torch.int32, device=device)
         self.p64 = torch.tensor(f.p_limbs, dtype=torch.int64, device=device)
         self.p_shifts = [torch.tensor(s, dtype=torch.int64, device=device)
                          for s in f.p_shifts]
@@ -323,15 +327,25 @@ class TField:
 
     # -- elementwise ------------------------------------------------------------
     def add(self, a, b) -> torch.Tensor:
+        """(a + b) mod p: K5 for CUDA tensors, the plain version for CPU
+        tensors."""
         b = self._tensor_like(b, a)
-        return _add(a, b, self.consts(a.device))
+        if a.is_cuda or b.is_cuda:
+            from lasso_tpu_torch.ops import field_cuda
+            return field_cuda.add_sub(a, b, False, self.name)
+        return _add_plain(a, b, self.consts(a.device))
 
     def sub(self, a, b) -> torch.Tensor:
+        """(a - b) mod p: K5 for CUDA tensors, the plain version for CPU
+        tensors."""
         b = self._tensor_like(b, a)
-        return _sub(a, b, self.consts(a.device))
+        if a.is_cuda or b.is_cuda:
+            from lasso_tpu_torch.ops import field_cuda
+            return field_cuda.add_sub(a, b, True, self.name)
+        return _sub_plain(a, b, self.consts(a.device))
 
     def neg(self, a) -> torch.Tensor:
-        return self.sub(torch.zeros_like(a), a)
+        return self.sub(self.consts(a.device).zero, a)
 
     def mul(self, a, b) -> torch.Tensor:
         """Montgomery product: kernel K1 on CUDA, its plain version on CPU."""
@@ -415,19 +429,22 @@ class TField:
     # -- reductions -------------------------------------------------------------------
     def sum_columns(self, x) -> torch.Tensor:
         """Lazy column sums along axis 0: [n, ..., W] -> int64 wide columns
-        [..., W + 3], value-preserving, each limb <= 2^16 + 1 (n < 2^31)."""
-        cols = x.to(torch.int64).sum(0)
-        for _ in range(3):
-            cols = _split_shift(cols)
-        return cols
+        [..., W + 3], value-preserving, each limb <= 2^16 + 1 (n < 2^31).
+        K5 for a CUDA tensor, the plain version for a CPU tensor: the same
+        columns, limb for limb."""
+        if x.is_cuda:
+            from lasso_tpu_torch.ops import field_cuda
+            return field_cuda.sum_columns(x)
+        return _sum_columns_plain(x)
 
     def finish_sum(self, wide) -> torch.Tensor:
         """Collapse wide columns (value < R*p) to a canonical Montgomery
-        element: REDC strips one R factor, a K1 product with R^2 puts it
-        back."""
-        c = self.consts(wide.device)
-        s = _mont_redc(wide, c).to(torch.int32)
-        return self.mul(s, c.r2)
+        element, the value mod p: K5 for a CUDA tensor, the plain version
+        for a CPU tensor."""
+        if wide.is_cuda:
+            from lasso_tpu_torch.ops import field_cuda
+            return field_cuda.finish_sum(wide, self.name)
+        return _finish_sum_plain(self, wide)
 
     def sum(self, x) -> torch.Tensor:
         """Sum of field elements along axis 0 of [n, ..., W] -> [..., W]."""
@@ -442,6 +459,21 @@ class TField:
         for m in self.consts(x.device).p_shifts:
             y = _cond_sub(y, m)
         return y.to(torch.int32)
+
+
+def _sum_columns_plain(x):
+    cols = x.to(torch.int64).sum(0)
+    for _ in range(3):
+        cols = _split_shift(cols)
+    return cols
+
+
+def _finish_sum_plain(f: TField, wide):
+    """REDC strips one R factor, a product with R^2 (K1 on CUDA tensors)
+    puts it back."""
+    c = f.consts(wide.device)
+    s = _mont_redc(wide, c).to(torch.int32)
+    return f.mul(s, c.r2)
 
 
 TFr = TField(HostFr, "Fr")

@@ -7,17 +7,28 @@ ops/field_pallas.py), their plain PyTorch versions, and their build.
   K4  keccak       csrc/keccak.cu       <- transcript/device_strobe.py:
                                            keccak_f1600_device (an XLA
                                            program, not a Pallas kernel)
+  K5  field_arith  csrc/field_arith.cu  <- no Pallas kernel: the field
+                                           layer's add, sub, column sums
+                                           and their finish, which the
+                                           reference leaves to XLA
 
 K2 carries the unfused curve path (curve/tcurve.py, LASSO_TPU_PALLAS_PADD=0);
 K3 the fused one; K4 the device-resident transcript (its plain version is
-transcript/device_strobe.keccak_f1600_plain).
+transcript/device_strobe.keccak_f1600_plain); K5 every add, sub, neg,
+column sum and finish of TFr and TFp on CUDA tensors (its plain versions
+are tfield's limb arithmetic).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, and the wrapper raises if the kernel cannot take it.  There is no
-fallback from one to the other.  K1 copies its operands as 16-byte chunks,
+fallback from one to the other.  K5's choice is made in field/tfield.py,
+beside its plain versions: `add_sub`, `sum_columns` and `finish_sum` here
+take CUDA tensors only.  K1 copies its operands as 16-byte chunks,
 so `mont_mul_cuda` raises on an operand that is not 16-byte aligned; the
 dispatcher `mont_mul` hands it aligned operands (a row-major [n, 16] view
-is aligned wherever its storage is, since a row is 64 B).
+is aligned wherever its storage is, since a row is 64 B).  K5 reads each
+element as four 16-byte loads likewise, from strided views: its
+dispatchers copy only an operand whose batch axes do not collapse to K5's
+strided layout, or that is not 16-byte aligned.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles each source
 into its own shared library with a plain C entry point (bound with ctypes),
@@ -49,15 +60,18 @@ CSRC = os.path.abspath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.abspath(os.path.join(_HERE, "..", "build"))
 HEADERS = ("field256.cuh", "keccak.cuh")
 SOURCES = {"mont_mul": "mont_mul.cu", "mont_mul_lm": "mont_mul_lm.cu",
-           "padd": "padd.cu", "keccak": "keccak.cu"}
+           "padd": "padd.cu", "keccak": "keccak.cu",
+           "field_arith": "field_arith.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FIELD_IDS = {"Fr": 0, "Fp": 1}
 
 # Kernel launches since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else, and counts it into the open span
-# while tracing counts (K1 mont_mul, K2 mont_mul_lm, K3 padd, K4 keccak).
-launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0, "keccak": 0}
+# while tracing counts (K1 mont_mul, K2 mont_mul_lm, K3 padd, K4 keccak,
+# K5 field_addsub for add/sub and field_sum for column sums and finishes).
+launch_counts = {"mont_mul": 0, "mont_mul_lm": 0, "padd": 0, "keccak": 0,
+                 "field_addsub": 0, "field_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,14 +127,14 @@ def padd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
     x1, y1, z1, t1 = coords(p)
     x2, y2, z2, t2 = coords(q)
-    s1, s2 = _tf._add(torch.stack([x1, x2]), torch.stack([y1, y2]), c)
+    s1, s2 = _tf._add_plain(torch.stack([x1, x2]), torch.stack([y1, y2]), c)
     a_, b_, tt, d_, s = mul(torch.stack([x1, y1, t1, z1, s1]),
                             torch.stack([x2, y2, t2, z2, s2]))
     c_, a_a = mul(torch.stack([tt, a_]),
                   torch.stack([d_m.expand(tt.shape), a_m.expand(a_.shape)]))
-    e = _tf._sub(_tf._sub(s, a_, c), b_, c)
-    f, h = _tf._sub(torch.stack([d_, b_]), torch.stack([c_, a_a]), c)
-    g = _tf._add(d_, c_, c)
+    e = _tf._sub_plain(_tf._sub_plain(s, a_, c), b_, c)
+    f, h = _tf._sub_plain(torch.stack([d_, b_]), torch.stack([c_, a_a]), c)
+    g = _tf._add_plain(d_, c_, c)
     out = mul(torch.stack([e, g, f, e]), torch.stack([f, h, g, h]))
     return out.movedim(-1, -2).movedim(0, -3)
 
@@ -219,6 +233,15 @@ def _lib(name: str) -> ctypes.CDLL:
     elif name == "padd":
         lib.lasso_padd.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.lasso_padd.restype = ctypes.c_int
+    elif name == "field_arith":
+        lib.lasso_field_addsub.argtypes = [vp, vp, vp, i64, i64, i64, i64,
+                                           i64, i64, ctypes.c_int,
+                                           ctypes.c_int, vp]
+        lib.lasso_field_sum.argtypes = [vp, vp, i64, i64, i64, i64, vp]
+        lib.lasso_field_finish.argtypes = [vp, vp, i64, i64, ctypes.c_int, vp]
+        for fn in (lib.lasso_field_addsub, lib.lasso_field_sum,
+                   lib.lasso_field_finish):
+            fn.restype = ctypes.c_int
     else:
         lib.lasso_keccak_f1600.argtypes = [vp, i64, vp]
         lib.lasso_keccak_f1600.restype = ctypes.c_int
@@ -361,6 +384,185 @@ def keccak_cuda(states: torch.Tensor) -> torch.Tensor:
     _tracing.count("k4")
     return states
 
+_K5 = None  # K5's C entries (addsub, sum, finish), bound on first use
+WIDE = W + 3  # limbs of a column sum's wide columns
+MAX_WIDE = 2 * W + 1  # widest columns a finish takes
+
+
+def _k5():
+    global _K5
+    if _K5 is None:
+        lib = _lib("field_arith")
+        _K5 = (lib.lasso_field_addsub, lib.lasso_field_sum,
+               lib.lasso_field_finish)
+    return _K5
+
+
+def _batch_layout(shape, a: torch.Tensor, b: torch.Tensor):
+    """The batch axes of `shape` (all but the limb axis), with a and b
+    broadcast to it, as one strided [outer, inner] batch: (outer, inner,
+    sa0, sa1, sb0, sb1) in int32 strides, 0 along broadcast axes.  None
+    where the axes do not collapse to two or an operand's limbs are not
+    its contiguous last axis."""
+    sa, sb = a.stride(), b.stride()
+    if sa[-1] != 1 or sb[-1] != 1 or a.shape[-1] != W or b.shape[-1] != W:
+        return None
+    nd = len(shape) - 1
+    ash, bsh = a.shape, b.shape
+    oa, ob = nd + 1 - len(ash), nd + 1 - len(bsh)
+    groups = []
+    size, ga, gb = 1, 0, 0  # the group being built, innermost first
+    for d in range(nd - 1, -1, -1):
+        n = shape[d]
+        if n == 1:
+            continue
+        if n == 0:
+            return 0, 1, 0, 0, 0, 0
+        da = 0 if d < oa or ash[d - oa] == 1 else sa[d - oa]
+        db = 0 if d < ob or bsh[d - ob] == 1 else sb[d - ob]
+        if size == 1:
+            size, ga, gb = n, da, db
+        elif da == ga * size and db == gb * size:
+            size *= n
+        else:
+            groups.append((size, ga, gb))
+            size, ga, gb = n, da, db
+    if len(groups) > 1:
+        return None
+    if groups:
+        (inner, sa1, sb1), (outer, sa0, sb0) = groups[0], (size, ga, gb)
+    else:
+        inner, sa1, sb1, outer, sa0, sb0 = size, ga, gb, 1, 0, 0
+    return outer, inner, sa0, sa1, sb0, sb1
+
+
+def _aligned_pair(a, b, layout) -> bool:
+    """Both operands 16-byte aligned, every stride a whole 16 bytes."""
+    _, _, sa0, sa1, sb0, sb1 = layout
+    return not ((a.data_ptr() | b.data_ptr()) & 15
+                or (sa0 | sa1 | sb0 | sb1) & 3)
+
+
+def _launch_addsub(a, b, shape, layout, sub: bool, field: str):
+    outer, inner, sa0, sa1, sb0, sb1 = layout
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    if outer * inner == 0:
+        return out
+    rc = _k5()[0](a.data_ptr(), b.data_ptr(), out.data_ptr(), outer, inner,
+                  sa0, sa1, sb0, sb1, sub, FIELD_IDS[field], _raw_stream(a))
+    _check_launch(rc, "field_addsub")
+    launch_counts["field_addsub"] += 1
+    _tracing.count("k5")
+    return out
+
+
+def add_sub_cuda(a: torch.Tensor, b: torch.Tensor, sub: bool,
+                 field: str) -> torch.Tensor:
+    """Launch K5's add (sub=False) or sub on int32 CUDA limbs of
+    broadcastable shapes [..., 16]: limbs contiguous, 16-byte aligned, the
+    batch axes of each operand a strided [outer, inner] view of it (a half
+    view x[:, :h] of a contiguous [I, n, 16], one broadcast [16] element).
+    Returns the contiguous [broadcast shape] result."""
+    for x, what in ((a, "a"), (b, "b")):
+        if not x.is_cuda:
+            raise ValueError(f"field_addsub {what}: expected a CUDA tensor, "
+                             f"got {x.device}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"field_addsub {what}: expected int32 limbs, got "
+                            f"{x.dtype}")
+    if a.get_device() != b.get_device():
+        raise ValueError("field_addsub: operands on different devices")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    layout = _batch_layout(shape, a, b)
+    if layout is None or not _aligned_pair(a, b, layout):
+        raise ValueError(
+            f"field_addsub: operands {tuple(a.shape)}, {a.stride()} and "
+            f"{tuple(b.shape)}, {b.stride()} are not two strided batch axes "
+            f"of 16-byte aligned, contiguous {W}-limb elements")
+    return _launch_addsub(a, b, shape, layout, sub, field)
+
+
+def _sum_layout(x: torch.Tensor):
+    """[n, ..., 16] as n rows of m column sets: (n, m, sn, sm) in int32
+    strides, or None where the column axes do not collapse to one or the
+    limbs are not the contiguous last axis."""
+    if x.dim() < 2 or x.shape[-1] != W or x.stride(-1) != 1:
+        return None
+    n = x.shape[0]
+    m, sm = 1, 0
+    for d in range(x.dim() - 2, 0, -1):
+        size = x.shape[d]
+        if size == 1:
+            continue
+        if size == 0:
+            return n, 0, 0, 0
+        if m == 1:
+            m, sm = size, x.stride(d)
+        elif x.stride(d) == sm * m:
+            m *= size
+        else:
+            return None
+    return n, m, (x.stride(0) if n > 1 else 0), sm
+
+
+def _aligned_sum(x, layout) -> bool:
+    return not (x.data_ptr() & 15 or (layout[2] | layout[3]) & 3)
+
+
+def _launch_sum(x, layout):
+    n, m, sn, sm = layout
+    out = torch.empty(x.shape[1:-1] + (WIDE,), dtype=torch.int64,
+                      device=x.device)
+    if m == 0:
+        return out
+    rc = _k5()[1](x.data_ptr(), out.data_ptr(), n, m, sn, sm, _raw_stream(x))
+    _check_launch(rc, "field_sum")
+    launch_counts["field_sum"] += 1
+    _tracing.count("k5")
+    return out
+
+
+def sum_columns_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch K5's column sum on int32 CUDA limbs [n, ..., 16]: limbs in
+    [0, 2^16), contiguous and 16-byte aligned, the axes between the first
+    and the last collapsing to one strided axis.  Returns the plain
+    version's int64 wide columns [..., 19], limb for limb."""
+    if not x.is_cuda:
+        raise ValueError(f"field_sum: expected a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"field_sum: expected int32 limbs, got {x.dtype}")
+    layout = _sum_layout(x)
+    if layout is None or not _aligned_sum(x, layout):
+        raise ValueError(
+            f"field_sum: {tuple(x.shape)}, {x.stride()} is not rows of "
+            f"column sets of 16-byte aligned, contiguous {W}-limb elements")
+    return _launch_sum(x, layout)
+
+
+def finish_sum_cuda(wide: torch.Tensor, field: str) -> torch.Tensor:
+    """Launch K5's finish on contiguous int64 CUDA wide columns [..., w],
+    w <= 33, each set's value V < R*p and each column in [0, 2^48): the
+    canonical Montgomery limbs [..., 16] of V mod p."""
+    if not wide.is_cuda:
+        raise ValueError(f"field_finish: expected a CUDA tensor, got "
+                         f"{wide.device}")
+    if wide.dtype != torch.int64 or not wide.is_contiguous():
+        raise ValueError("field_finish: expected contiguous int64 columns")
+    width = wide.shape[-1]
+    if not 1 <= width <= MAX_WIDE:
+        raise ValueError(f"field_finish: {width} columns, not 1 to {MAX_WIDE}")
+    out = torch.empty(wide.shape[:-1] + (W,), dtype=torch.int32,
+                      device=wide.device)
+    m = out.numel() // W
+    if m == 0:
+        return out
+    rc = _k5()[2](wide.data_ptr(), out.data_ptr(), m, width,
+                  FIELD_IDS[field], _raw_stream(wide))
+    _check_launch(rc, "field_finish")
+    launch_counts["field_sum"] += 1
+    _tracing.count("k5")
+    return out
+
 
 def _on_cpu(*xs) -> bool:
     devs = {x.device.type for x in xs}
@@ -433,3 +635,49 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = padd_cuda(p.expand(shape).contiguous().reshape(flat),
                     q.expand(shape).contiguous().reshape(flat))
     return out.reshape(shape)
+
+
+def add_sub(a: torch.Tensor, b: torch.Tensor, sub: bool,
+            field: str) -> torch.Tensor:
+    """(a - b) if sub else (a + b) mod p of broadcastable int CUDA limbs
+    [..., 16] through K5.  Strided and broadcast operands go to K5 as
+    views; an operand whose batch axes do not collapse to two strided axes,
+    or that is not 16-byte aligned, is copied first."""
+    if not (a.is_cuda and b.is_cuda) or a.get_device() != b.get_device():
+        raise ValueError(f"field_addsub: operands on {a.device} and "
+                         f"{b.device}, expected one CUDA device")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        a, b = a.to(torch.int32), b.to(torch.int32)
+    shape = a.shape
+    if b.shape != shape:
+        shape = torch.broadcast_shapes(shape, b.shape)
+    layout = _batch_layout(shape, a, b)
+    if layout is None or not _aligned_pair(a, b, layout):
+        a, b = (x.expand(shape).contiguous() for x in (a, b))
+        a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
+        layout = _batch_layout(shape, a, b)
+    return _launch_addsub(a, b, shape, layout, sub, field)
+
+
+def sum_columns(x: torch.Tensor) -> torch.Tensor:
+    """Wide int64 columns [..., 19] of the sums over axis 0 of int CUDA
+    limbs [n, ..., 16] through K5, read in place where the column axes
+    collapse to one strided axis and x is 16-byte aligned, else copied
+    first."""
+    if not x.is_cuda:
+        raise ValueError(f"field_sum: expected a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    layout = _sum_layout(x)
+    if layout is None or not _aligned_sum(x, layout):
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        layout = _sum_layout(x)
+    return _launch_sum(x, layout)
+
+
+def finish_sum(wide: torch.Tensor, field: str) -> torch.Tensor:
+    """Canonical Montgomery limbs [..., 16] of CUDA wide columns' values
+    mod p: K5's REDC and product with R^2, in one launch."""
+    return finish_sum_cuda(wide.to(torch.int64).contiguous(), field)

@@ -30,7 +30,7 @@ was the innermost open one, its children's share excluded:
     launch no kernel (_NO_KERNEL) and copies between devices, keyed by the
     innermost `lasso_tpu_torch` module on the Python stack
     (e.g. `field.tfield`, `curve.tcurve`, `ops.msm`);
-  * `k1`..`k4`: launches of the hand-written kernels (ops/field_cuda.py
+  * `k1`..`k5`: launches of the hand-written kernels (ops/field_cuda.py
     calls `count`), which ctypes hides from the mode;
   * `syncs`: waits of the host on the device: the ops in _SYNC_OPS on a
     device tensor, blocking copies from the device to the CPU, and the
@@ -272,7 +272,7 @@ def inclusive_counts(s: Span) -> dict:
     return out
 
 
-_CHART_KEYS = ("ops", "k1", "k2", "k3", "k4", "syncs")
+_CHART_KEYS = ("ops", "k1", "k2", "k3", "k4", "k5", "syncs")
 
 
 def print_span_tree(file=None, min_ms: float = 0.0) -> None:

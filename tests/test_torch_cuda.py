@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from lasso_tpu_torch.field import tfield
 from lasso_tpu_torch.field.tfield import TFp, TFr
 from lasso_tpu_torch.ops import field_cuda
 
@@ -307,6 +308,71 @@ def _check_golden_and_4d(dev):
             os.environ["LASSO_TPU_DEVICE_TRANSCRIPT"] = old
 
 
+def _check_field_arith_kernel(dev, field):
+    """K5 against its plain versions, exactly, at the main path's shapes:
+    add/sub on the halves of [2, 2^16, 16] and of [16, 2^16, 16] (read in
+    place), a broadcast [16] element on either side, odd n and n = 1, with
+    the edge values 0, 1 and p-1; column sums of [2^15, 16] and of the
+    transposed [2^15, 16, 16] products limb for limb, their finish; one
+    launch a call, and the finish launches no K1."""
+    rng = np.random.default_rng(7)
+    name = field.name
+    counts = field_cuda.launch_counts
+
+    c = field.consts("cpu")
+
+    def cpu_plain(a, b, sub):
+        return (tfield._sub_plain if sub else tfield._add_plain)(
+            a.cpu(), b.cpu(), c)
+
+    for rows in (2, 16):
+        st = torch.as_tensor(_edge_limbs(rng, rows * (1 << 16), field),
+                             device=dev).reshape(rows, 1 << 16, 16)
+        lo, hi = st[:, :1 << 15], st[:, 1 << 15:]
+        for sub in (False, True):
+            before = dict(counts)
+            got = (field.sub if sub else field.add)(hi, lo)
+            assert counts["field_addsub"] == before["field_addsub"] + 1
+            assert got.is_contiguous() and got.shape == lo.shape
+            assert torch.equal(got.cpu(), cpu_plain(hi, lo, sub)), (rows, sub)
+            assert torch.equal(field_cuda.add_sub_cuda(lo, hi, sub, name).cpu(),
+                               cpu_plain(lo, hi, sub)), (rows, sub)
+    for n in (1, 7, (1 << 15) + 3, 257):
+        a = torch.as_tensor(_edge_limbs(rng, n, field), device=dev)
+        b = torch.as_tensor(_edge_limbs(rng, n, field), device=dev)
+        if n >= 9:  # rows 3..8 pair every edge value with every other
+            b[3:9] = b[[0, 1, 2, 0, 1, 2]]
+        for sub in (False, True):
+            for x, y in ((a, b), (a, b[min(2, n - 1)]), (b[0], a)):
+                before = counts["field_addsub"]
+                got = field_cuda.add_sub(x, y, sub, name)
+                assert counts["field_addsub"] == before + 1
+                assert torch.equal(got.cpu(), cpu_plain(x, y, sub)), (n, sub)
+        assert torch.equal(field.neg(a).cpu(),
+                           cpu_plain(torch.zeros_like(a), a, True))
+
+    prods = torch.as_tensor(_edge_limbs(rng, 16 * (1 << 15), field),
+                            device=dev).reshape(16, 1 << 15, 16)
+    for x in (prods[0], prods.movedim(1, 0), prods[:, :1].movedim(1, 0),
+              prods[:3, :(1 << 15) - 5].movedim(1, 0), prods[0, :1],
+              field.mul(prods[:2], prods[2:4]).movedim(1, 0)):
+        before = dict(counts)
+        cols = field.sum_columns(x)
+        assert counts["field_sum"] == before["field_sum"] + 1
+        assert torch.equal(cols.cpu(), tfield._sum_columns_plain(x.cpu())), \
+            tuple(x.shape)
+        got = field.finish_sum(cols)
+        assert counts["field_sum"] == before["field_sum"] + 2
+        assert counts["mont_mul"] == before["mont_mul"]
+        assert torch.equal(got.cpu(),
+                           tfield._finish_sum_plain(field, cols.cpu()))
+        if x.shape[0] <= 64:  # the values, against the host
+            sets = x.reshape(x.shape[0], -1, 16).cpu()
+            assert field.decode(got) == [
+                sum(field.decode(sets[:, j])) % field.host.p
+                for j in range(sets.shape[1])]
+
+
 def test_kernels_and_golden_proof_on_the_card(dev):
     """Every check of this module as one test item: the tier-1 suite, which
     collects this file on the CPU too, keeps its item count (ROADMAP.md,
@@ -314,6 +380,7 @@ def test_kernels_and_golden_proof_on_the_card(dev):
     for field in (TFr, TFp):
         _check_mont_mul_kernels(dev, field)
         _check_mont_mul_ragged(dev, field)
+        _check_field_arith_kernel(dev, field)
     _check_padd_kernel(dev)
     _check_keccak_kernel(dev)
     _check_golden_and_4d(dev)

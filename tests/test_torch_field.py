@@ -477,7 +477,7 @@ if jf is JFp:
 
 
 def test_dispatch_uses_plain_version_on_cpu():
-    """K1's, K2's and K4's dispatchers take the plain version for CPU
+    """K1's, K2's, K4's and K5's dispatchers take the plain version for CPU
     tensors (no launch; K2's broadcasts leading axes); the kernel wrappers
     take CUDA tensors only."""
     _, _, _, ta, tb = _pair("Fr", seed=13)
@@ -531,6 +531,63 @@ def test_dispatch_uses_plain_version_on_cpu():
     assert torch.equal(out, keccak_f1600_plain(states))
     with pytest.raises(ValueError):
         field_cuda.keccak_cuda(states)
+    _check_k5_dispatch_on_cpu()
+
+
+def _check_k5_dispatch_on_cpu():
+    """TFr/TFp add, sub, neg, sum_columns and finish_sum take the plain
+    versions for CPU tensors (no launch); K5's wrappers take CUDA tensors
+    only; the dispatcher's layouts read half views, broadcast
+    elements and transposed sums in place and refuse what does not
+    collapse."""
+    before = dict(field_cuda.launch_counts)
+    for name, tf in FIELDS.items():
+        _, _, _, ta, tb = _pair(name, seed=29)
+        c = tf.consts("cpu")
+        assert torch.equal(tf.add(ta, tb), tfield._add_plain(ta, tb, c))
+        assert torch.equal(tf.sub(ta, tb), tfield._sub_plain(ta, tb, c))
+        assert torch.equal(tf.neg(ta),
+                           tfield._sub_plain(torch.zeros_like(ta), ta, c))
+        x = torch.stack([ta, tb], dim=1)  # [64, 2, 16]
+        cols = tf.sum_columns(x)
+        assert torch.equal(cols, tfield._sum_columns_plain(x))
+        assert torch.equal(tf.finish_sum(cols),
+                           tfield._finish_sum_plain(tf, cols))
+        assert tf.decode(tf.sum(x)) == [sum(tf.decode(x[:, j])) % tf.host.p
+                                        for j in range(2)]
+        assert field_cuda.launch_counts == before
+        # K5's wrappers, strict or copying, take CUDA tensors only
+        for call in (lambda: field_cuda.add_sub_cuda(ta, tb, False, name),
+                     lambda: field_cuda.add_sub(ta, tb, True, name),
+                     lambda: field_cuda.sum_columns_cuda(x),
+                     lambda: field_cuda.sum_columns(x),
+                     lambda: field_cuda.finish_sum_cuda(cols, name),
+                     lambda: field_cuda.finish_sum(cols, name)):
+            with pytest.raises(ValueError):
+                call()
+
+    layout = field_cuda._batch_layout
+    st = torch.zeros(3, 64, 16, dtype=torch.int32)
+    lo, hi = st[:, :32], st[:, 32:]
+    assert layout(lo.shape, lo, hi) == (3, 32, 1024, 16, 1024, 16)
+    assert layout(lo.shape, lo, st[0, 5]) == (3, 32, 1024, 16, 0, 0)
+    assert layout(lo.shape, st[1, :1], lo) == (3, 32, 0, 0, 1024, 16)
+    assert layout((16,), st[0, 0], st[0, 1]) == (1, 1, 0, 0, 0, 0)
+    assert layout(st.shape, st, st[0]) == (3, 64, 1024, 16, 0, 16)
+    assert layout(st.shape, st, st) == (1, 192, 0, 16, 0, 16)
+    four = torch.zeros(2, 3, 4, 16, dtype=torch.int32)
+    assert layout(four[:, :, :2].shape, four[:, :, :2],
+                  four[:, :, 2:]) == (6, 2, 64, 16, 64, 16)
+    assert layout(four[:, :2, :2].shape, four[:, :2, :2],
+                  four[:, 1:, 2:]) is None  # three strided axes
+    assert layout(st.shape, st, st.movedim(-1, -2).contiguous().movedim(
+        -2, -1)) is None  # limb-major: limbs not the contiguous axis
+    sums = field_cuda._sum_layout
+    assert sums(st[0]) == (64, 1, 16, 0)
+    assert sums(st.movedim(1, 0)) == (64, 3, 16, 1024)
+    assert sums(lo.movedim(1, 0)) == (32, 3, 16, 1024)
+    assert sums(four) == (2, 12, 192, 16)
+    assert sums(four[:, :, :2]) is None
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +710,58 @@ extern "C" void h_mont_mul_lm(const int32_t* a, const int32_t* b,
   field == 0 ? lm_field<0>(a, b, out, (uint32_t)n, b_const, threads, s)
              : lm_field<1>(a, b, out, (uint32_t)n, b_const, threads, s);
 }
+// K5's add/sub as its kernel runs it: one element per thread over the
+// flat [outer * inner] batch, each operand read through its strides.
+extern "C" void h_addsub(const int32_t* a, const int32_t* b, int32_t* out,
+                         int64_t outer, int64_t inner, int64_t sa0,
+                         int64_t sa1, int64_t sb0, int64_t sb1, int sub,
+                         int field) {
+  const f256::Modulus m = field == 0 ? f256::fr_modulus() : f256::fp_modulus();
+  for (uint32_t e = 0; e < (uint32_t)(outer * inner); ++e) {
+    if (sub)
+      f256::addsub_element<f256::PortableOps, true>(
+          a, b, out, e, (uint32_t)inner, sa0, sa1, sb0, sb1, m);
+    else
+      f256::addsub_element<f256::PortableOps, false>(
+          a, b, out, e, (uint32_t)inner, sa0, sa1, sb0, sb1, m);
+  }
+}
+// K5's column-sum grid (sum_launch) into shape[2]: threads, splits.
+extern "C" void h_sum_launch(int64_t n, int64_t m, int sms, int64_t* shape) {
+  const f256::SumLaunch s = f256::sum_launch(n, m, sms);
+  shape[0] = s.threads, shape[1] = s.splits;
+}
+// K5's column sum as its kernel runs it: the grid from sum_launch, each
+// split's rows from split_rows, every thread's share through sum_rows,
+// the partial sums added, then wide_columns.
+extern "C" void h_sum(const int32_t* x, int64_t* out, int64_t n, int64_t m,
+                      int64_t sn, int64_t sm, int sms) {
+  const f256::SumLaunch s = f256::sum_launch(n, m, sms);
+  for (int64_t set = 0; set < m; ++set) {
+    uint64_t total[16] = {0};
+    for (int split = 0; split < s.splits; ++split) {
+      int64_t begin, end;
+      f256::split_rows(n, s.splits, split, &begin, &end);
+      for (int t = 0; t < s.threads; ++t) {
+        uint64_t acc[4] = {0, 0, 0, 0};
+        f256::sum_rows(acc, x + set * sm, sn, begin, end, t, s.threads);
+        for (int k = 0; k < 4; ++k) total[4 * (t & 3) + k] += acc[k];
+      }
+    }
+    f256::wide_columns(out + set * f256::kWide, total);
+  }
+}
+// K5's finish, one column set at a time.
+extern "C" void h_finish(const int64_t* cols, int32_t* out, int64_t m,
+                         int64_t width, int field) {
+  const f256::Modulus md = field == 0 ? f256::fr_modulus() : f256::fp_modulus();
+  for (int64_t set = 0; set < m; ++set) {
+    uint32_t w[8];
+    f256::finish_wide<f256::PortableOps>(w, cols + set * width, (int)width,
+                                         md, field);
+    f256::store16(out + 16 * set, w, 1);
+  }
+}
 extern "C" void h_padd(const int32_t* p, const int32_t* q, int32_t* out,
                        int64_t n) {
   const f256::Curve c = f256::curve25519();
@@ -689,6 +798,11 @@ def header_lib(tmp_path_factory):
     lib.h_mont_mul_lm.argtypes = [vp, vp, vp, i64, i64, i32, i32, i32, i32,
                                   i32]
     lib.h_keccak.argtypes = [vp]
+    lib.h_addsub.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64, i64, i32,
+                             i32]
+    lib.h_sum_launch.argtypes = [i64, i64, i32, vp]
+    lib.h_sum.argtypes = [vp, vp, i64, i64, i64, i64, i32]
+    lib.h_finish.argtypes = [vp, vp, i64, i64, i32]
     return lib
 
 
@@ -765,6 +879,102 @@ def test_cuda_header_mont_mul_matches_plain(header_lib, name):
                 (k, n, b_const)
     assert _lm_launch(header_lib, 3 * 200, 200, 1, 2, 32, 2) == (2, 300, 10)
     assert _lm_launch(header_lib, 3 * 201, 201, 1, 2, 32, 2)[0] == 1
+    _check_k5_header(header_lib, name)
+
+
+def _k5_addsub(lib, a, b, shape, sub, name):
+    """K5's add/sub through the host build, on the operands' own storage
+    (strides from the dispatcher's layout)."""
+    outer, inner, sa0, sa1, sb0, sb1 = field_cuda._batch_layout(shape, a, b)
+    out = torch.empty(shape, dtype=torch.int32)
+    lib.h_addsub(a.data_ptr(), b.data_ptr(), out.data_ptr(), outer, inner,
+                 sa0, sa1, sb0, sb1, int(sub),
+                 field_cuda.FIELD_IDS[name])
+    return out
+
+
+def _k5_sum(lib, x, sms):
+    n, m, sn, sm = field_cuda._sum_layout(x)
+    out = torch.empty(x.shape[1:-1] + (field_cuda.WIDE,), dtype=torch.int64)
+    lib.h_sum(x.data_ptr(), out.data_ptr(), n, m, sn, sm, sms)
+    return out
+
+
+def _k5_finish(lib, wide, name):
+    wide = wide.contiguous()
+    out = torch.empty(wide.shape[:-1] + (16,), dtype=torch.int32)
+    lib.h_finish(wide.data_ptr(), out.data_ptr(), out.numel() // 16,
+                 wide.shape[-1], field_cuda.FIELD_IDS[name])
+    return out
+
+
+def _check_k5_header(lib, name):
+    """K5's arithmetic and addressing as its kernels run them (add/sub over
+    strided and broadcast operands, the column-sum grid with its splits and
+    per-thread rows, the finish's REDC and product with R^2) against
+    tfield's plain versions, with 0, 1, p-1, sums that wrap and a column of
+    2^20 elements of p-1."""
+    tf = FIELDS[name]
+    c = tf.consts("cpu")
+    vals = _ints(tf, 96, 51)
+    vals[3:9] = [tf.host.p - 1, tf.host.p - 2, 1, 2, tf.host.p // 2,
+                 tf.host.p // 2 + 1]
+    ta = tf.encode_ints(vals, "cpu")
+    tb = tf.encode_ints(vals[::-1], "cpu")  # p-1 + p-1, p-1 - 0, 0 - p-1 ...
+    for sub, plain in ((False, tfield._add_plain), (True, tfield._sub_plain)):
+        assert torch.equal(_k5_addsub(lib, ta, tb, ta.shape, sub, name),
+                           plain(ta, tb, c)), sub
+        # half views of a contiguous [I, n, 16], one broadcast element on
+        # either side, a [1, 16] row over [I, h, 16], and neg (0 - x)
+        st = ta.reshape(3, 32, 16)
+        lo, hi = st[:, :16], st[:, 16:]
+        for x, y in ((hi, lo), (lo, ta[5]), (ta[4], hi), (hi, ta[3:4]),
+                     (c.zero, ta)):
+            shape = torch.broadcast_shapes(x.shape, y.shape)
+            assert torch.equal(_k5_addsub(lib, x, y, shape, sub, name),
+                               plain(x, y, c)), (sub, x.shape, y.shape)
+
+    p_minus_1 = tf.encode_ints([tf.host.p - 1], "cpu")[0]
+    plain_sum = tfield._sum_columns_plain
+    rows = tf.encode_ints(_ints(tf, 2 * 3 * 300, 52), "cpu").reshape(
+        2, 900, 16)
+    rows[0, :5] = p_minus_1
+    grid = functools.partial(_k5_grid, lib)
+    assert grid(1 << 15, 1, 132) == (1024, 8)
+    assert grid(1 << 15, 16, 132) == (1024, 8)
+    assert grid(1 << 12, 1, 132) == (1024, 4)
+    assert grid(4, 512, 132) == (32, 1)
+    assert grid(1, 1, 132) == (32, 1)
+    assert grid(0, 1, 132) == (32, 1)
+    for x, sms in ((rows[0], 132), (rows[0], 1), (rows[0, :1], 1),
+                   (rows[0, :0], 1), (rows.movedim(1, 0), 1),
+                   (rows.reshape(2, 300, 3, 16)[:, :, 1], 2),
+                   (rows.reshape(600, 3, 16), 1),
+                   (p_minus_1.expand(1 << 20, 16), 2)):
+        got = _k5_sum(lib, x, sms)
+        want = plain_sum(x)
+        assert torch.equal(got, want), (x.shape, x.stride(), sms)
+        assert torch.equal(_k5_finish(lib, got, name),
+                           tfield._finish_sum_plain(tf, want)), x.shape
+    # the mesh route's psum of 8 ranks' columns, and 33 columns (the
+    # widest) of a value below R*p
+    cols = plain_sum(rows.reshape(600, 3, 16))
+    assert torch.equal(_k5_finish(lib, cols * 8, name),
+                       tfield._finish_sum_plain(tf, cols * 8))
+    rng = np.random.default_rng(53)
+    wide = torch.zeros(5, 33, dtype=torch.int64)
+    wide[:, :29] = torch.as_tensor(rng.integers(0, 1 << 36, size=(5, 29)))
+    wide[:2] = 0
+    wide[1, :16] = torch.as_tensor(tf.p_limbs)  # p -> 0
+    assert torch.equal(_k5_finish(lib, wide, name),
+                       tfield._finish_sum_plain(tf, wide))
+    assert not _k5_finish(lib, wide, name)[:2].any()
+
+
+def _k5_grid(lib, n, m, sms):
+    shape = (ctypes.c_int64 * 2)()
+    lib.h_sum_launch(n, m, sms, shape)
+    return tuple(shape)
 
 
 def test_cuda_header_padd_matches_plain(header_lib):
