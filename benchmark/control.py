@@ -51,8 +51,8 @@ def reading(prog, cell, seed: int, fault: str | None) -> dict:
                    harness.to_plain(comm.log_m_variate_polys_commitment.C)],
                "proof": None if proof is None else harness.to_plain(proof)}
         counts = check.judge(batch.indices, batch.r, cell.config["log_M"],
-                             out, harness.TRANSCRIPT_LABEL,
-                             harness.GENS_LABEL,
+                             cell.config["strategy"], out,
+                             harness.TRANSCRIPT_LABEL, harness.GENS_LABEL,
                              traffic.rng_for(seed, 1, 3), notes)
     return {"seed": seed, "fault": fault, **counts, "raised": raised,
             "pass_s": pass_s, "notes": notes[:4]}

@@ -85,7 +85,10 @@ class Program:
             "1" if config["transcript"] == "device" else "0")
         import torch
 
-        import lasso_tpu_torch.subtables.bitwise  # noqa: F401 (registers AND)
+        # each subtable module registers its strategies
+        import lasso_tpu_torch.subtables.bitwise  # noqa: F401
+        import lasso_tpu_torch.subtables.lt  # noqa: F401
+        import lasso_tpu_torch.subtables.range_check  # noqa: F401
         from lasso_tpu_torch.lasso.densified import DensifiedRepresentation
         from lasso_tpu_torch.lasso.surge import (
             SparsePolyCommitmentGens, SparsePolynomialEvaluationProof)
@@ -237,8 +240,8 @@ def judge(cell: manifest.Cell, seed: int, sample: Sample,
                "proof": to_plain(rec.proof)}
         notes: list[str] = []
         counts = check.judge(
-            batch.indices, batch.r, cell.config["log_M"], out,
-            TRANSCRIPT_LABEL, GENS_LABEL,
+            batch.indices, batch.r, cell.config["log_M"],
+            cell.config["strategy"], out, TRANSCRIPT_LABEL, GENS_LABEL,
             traffic.rng_for(seed, rec.index, _WEIGHTS_STREAM), notes)
         for note in notes:
             log(f"pass {rec.index}: {note}")

@@ -2,12 +2,16 @@
 
 A cell's traffic is `benchmark/workloads/<cell>.json`, its configuration the
 `file` of its `configs` entry, and each per-layer metric the reader
-`benchmark/metrics/<metric>.py`.  A later change adds a cell or a metric by
-adding such files and an entry, and edits no file that is there.
+`benchmark/metrics/<metric>.py`.  A configuration's `strategy` names the
+semantics that the reference judges it by,
+`benchmark/reference/strategies/<strategy>.py`.  A later change adds a cell,
+a metric or a strategy by adding such files and an entry, and edits no file
+that is there.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -59,11 +63,20 @@ def cell(name: str, bench: dict | None = None) -> Cell:
                 [m for m in bench["per_layer"] if _applies(m, name)])
 
 
-def reader(metric: str):
-    """The `read(trace)` function of a per-layer metric."""
-    path = os.path.join(METRICS, f"{metric}.py")
+@functools.lru_cache(maxsize=None)
+def by_name(folder: str, name: str, package: str):
+    """The module `<folder>/<name>.py`, loaded once by its file name as
+    `<package>._<name>`; `FileNotFoundError` if there is no such file."""
+    path = os.path.join(folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {package} module {name!r} ({path})")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark.metrics._{metric.replace('-', '_').replace('.', '_')}", path)
+        f"{package}._{name.replace('-', '_').replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str):
+    """The `read(trace)` function of a per-layer metric."""
+    return by_name(METRICS, metric, "benchmark.metrics").read

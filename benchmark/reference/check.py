@@ -10,13 +10,16 @@ the reference, as four counts, each with the limit 0.
   proof_rejected     1 if the reference verifier refuses the proof (the
                      primary sumcheck, both grand-product arguments, the
                      hash layer and every Hyrax opening)
+
+The claim and the verifier follow the configuration's subtable strategy,
+its module in `benchmark/reference/strategies/` found by name.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from benchmark.reference import curve, lasso
+from benchmark.reference import curve, lasso, strategies
 from benchmark.reference.gens import generators
 
 LIMITS = {"densify_mismatch": 0, "commit_mismatch": 0, "claim_mismatch": 0,
@@ -31,14 +34,15 @@ def _decompress_all(points: list[bytes]):
         return None
 
 
-def judge(indices: np.ndarray, r: list[int], log_m: int, out: dict,
-          transcript_label: bytes, gens_label: bytes, weights_rng,
+def judge(indices: np.ndarray, r: list[int], log_m: int, strategy: str,
+          out: dict, transcript_label: bytes, gens_label: bytes, weights_rng,
           notes: list[str]) -> dict[str, int]:
-    """Counts for one pass.  `out` holds the program's outputs as plain
-    data: `tables` (two int32 [n, 16] limb arrays), `commitment` (two lists
-    of compressed rows) and `proof` (the proof's fields, or None if the
-    program gave none).  Each check's
-    failure is described in `notes`."""
+    """Counts for one pass of the subtable strategy named `strategy`.
+    `out` holds the program's outputs as plain data: `tables` (two int32
+    [n, 16] limb arrays), `commitment` (two lists of compressed rows) and
+    `proof` (the proof's fields, or None if the program gave none).  Each
+    check's failure is described in `notes`."""
+    strat = strategies.strategy(strategy)
     s_raw, c = indices.shape
     s = lasso.next_pow2(s_raw)
     counts = dict.fromkeys(LIMITS, 0)
@@ -58,7 +62,7 @@ def judge(indices: np.ndarray, r: list[int], log_m: int, out: dict,
 
     widest = max(1 << lasso.factored(lasso.log2(w.size))[1] for w in want)
     widest = max(widest, 1 << lasso.factored(
-        lasso.log2(lasso.next_pow2(c * s)))[1])
+        lasso.log2(lasso.next_pow2(strat.num_memories(c) * s)))[1])
     stream = generators(gens_label, widest + 2)
 
     rows = []
@@ -75,7 +79,7 @@ def judge(indices: np.ndarray, r: list[int], log_m: int, out: dict,
         counts["claim_mismatch"] = counts["proof_rejected"] = 1
         notes.append("no proof")
         return counts
-    claim = lasso.evaluation(indices, r, log_m)
+    claim = lasso.evaluation(indices, r, log_m, strat)
     if proof["primary_sumcheck"]["claimed_evaluation"] != claim:
         counts["claim_mismatch"] = 1
         notes.append("claim: the claimed evaluation is not the reference's")
@@ -86,7 +90,7 @@ def judge(indices: np.ndarray, r: list[int], log_m: int, out: dict,
         return counts
     try:
         lasso.verify(proof, rows[0], rows[1], r, s, c, log_m, stream,
-                     transcript_label)
+                     transcript_label, strat)
     except (lasso.Rejected, ValueError, KeyError, IndexError, TypeError,
             ZeroDivisionError) as e:
         counts["proof_rejected"] = 1

@@ -1,7 +1,8 @@
-"""Lasso's semantics for the AND subtable strategy, in plain Python and
-NumPy: the densified tables, the sparse polynomial's value at a point, the
-Hyrax row commitments and the verifier (a16z/Lasso src/lasso/surge.rs,
-densified.rs, memory_checking.rs, src/subprotocols/, src/poly/).
+"""Lasso's semantics in plain Python and NumPy: the densified tables, the
+sparse polynomial's value at a point, the Hyrax row commitments and the
+verifier (a16z/Lasso src/lasso/surge.rs, densified.rs, memory_checking.rs,
+src/subprotocols/, src/poly/).  What depends on the subtable strategy comes
+from its module in `benchmark/reference/strategies/`, handed in as `strat`.
 
 A proof is handed over as plain data: each struct a dict of its fields by
 their names in the reference, each point its 32-byte compressed encoding,
@@ -28,30 +29,6 @@ def log2(n: int) -> int:
 
 def next_pow2(n: int) -> int:
     return 1 << max((n - 1).bit_length(), 0)
-
-
-# -- the AND subtable ----------------------------------------------------------
-
-def and_values(index: np.ndarray, log_m: int) -> np.ndarray:
-    """T[index] for M = 2^log_m: the index is lhs || rhs, log_m/2 bits each."""
-    b = log_m // 2
-    mask = (1 << b) - 1
-    return (index >> b) & index & mask
-
-
-def and_mle(point: list[int]) -> int:
-    """The AND subtable's multilinear extension at a point of log_m
-    coordinates."""
-    b = len(point) // 2
-    x, y = point[:b], point[b:]
-    return sum((1 << i) * x[b - 1 - i] * y[b - 1 - i] for i in range(b)) % FR
-
-
-def combine(vals: list[int], log_m: int) -> int:
-    """g(T_1..T_C) = sum_i T_i 2^(i log_m/2): the C chunks' results
-    recomposed."""
-    b = log_m // 2
-    return sum(v << (i * b) for i, v in enumerate(vals)) % FR
 
 
 # -- densify -------------------------------------------------------------------
@@ -121,15 +98,17 @@ def eq(r: list[int], x: list[int]) -> int:
     return acc
 
 
-def evaluation(indices: np.ndarray, r: list[int], log_m: int) -> int:
-    """sum_k eq(r, k) g(T[nz_k,1], ..., T[nz_k,C]): the claimed evaluation."""
+def evaluation(indices: np.ndarray, r: list[int], log_m: int, strat) -> int:
+    """sum_k eq(r, k) g(T_1[nz_k,d_1], ..., T_a[nz_k,d_a]): the claimed
+    evaluation, memory j reading its subtable at chunk d_j of lookup k."""
     s_raw, c = indices.shape
     padded = np.zeros((next_pow2(s_raw), c), dtype=np.int64)
     padded[:s_raw] = indices
-    b = log_m // 2
-    vals = np.zeros(padded.shape[0], dtype=object)
-    for i in range(c):
-        vals += and_values(padded[:, i], log_m).astype(object) << (i * b)
+    vals = strat.combine([
+        strat.subtable_values(
+            strat.memory_to_subtable(j, c),
+            padded[:, strat.memory_to_dimension(j, c)], log_m).astype(object)
+        for j in range(strat.num_memories(c))], log_m)
     for rj in r:  # bind the top variable
         half = vals.shape[0] // 2
         lo, hi = vals[:half], vals[half:]
@@ -304,13 +283,14 @@ def _append_rows(t: Transcript, label: bytes, rows: list[bytes]) -> None:
 
 
 def verify(proof: dict, rows_l: list, rows_m: list, r: list[int], s: int,
-           c: int, log_m: int, stream: list, label: bytes) -> None:
-    """SparsePolynomialEvaluationProof::verify for the AND strategy; raises
-    Rejected.  rows_l, rows_m: the decompressed commitment rows; stream: the
-    label's generator points, enough for the widest opening."""
+           c: int, log_m: int, stream: list, label: bytes, strat) -> None:
+    """SparsePolynomialEvaluationProof::verify for the strategy `strat`;
+    raises Rejected.  rows_l, rows_m: the decompressed commitment rows;
+    stream: the label's generator points, enough for the widest opening."""
+    alpha = strat.num_memories(c)
     num_vars_l = log2(next_pow2(2 * c * s))
     num_vars_m = log2(next_pow2(c)) + log_m
-    num_vars_d = log2(next_pow2(c * s))
+    num_vars_d = log2(next_pow2(alpha * s))
 
     def gens(num_vars):
         return _OpeningGens(stream, 1 << factored(num_vars)[1])
@@ -329,10 +309,11 @@ def verify(proof: dict, rows_l: list, rows_m: list, r: list[int], s: int,
     ps = proof["primary_sumcheck"]
     t.append_scalar(b"claim_eval_scalar_product", ps["claimed_evaluation"])
     last, r_z = _sumcheck(ps["proof"]["compressed_polys"],
-                          ps["claimed_evaluation"], log2(s), 2, t)
+                          ps["claimed_evaluation"], log2(s),
+                          strat.g_degree(c) + 1, t)
     derefs = ps["eval_derefs"]
-    _require(len(derefs) == c, "lookup evaluation count")
-    _require(eq(r, r_z) * combine(derefs, log_m) % FR == last,
+    _require(len(derefs) == alpha, "lookup evaluation count")
+    _require(eq(r, r_z) * strat.combine(derefs, log_m) % FR == last,
              "primary sumcheck final claim")
     _combined_eval(ps["proof_derefs"], r_z, derefs, gens(num_vars_d), rows_d, t)
 
@@ -342,7 +323,7 @@ def verify(proof: dict, rows_l: list, rows_m: list, r: list[int], s: int,
     prod = mc["proof_prod_layer"]
     t.append_protocol_name(b"Lasso ProductLayerProof")
     hashes = prod["grand_product_evals"]
-    _require(len(hashes) == c, "memory count")
+    _require(len(hashes) == alpha, "memory count")
     for h_init, h_read, h_write, h_final in hashes:
         _require(h_init * h_write % FR == h_read * h_final % FR,
                  "multiset hash identity")
@@ -381,18 +362,19 @@ def verify(proof: dict, rows_l: list, rows_m: list, r: list[int], s: int,
 
     init_addr = sum((1 << (len(rand_mem) - 1 - i)) * x
                     for i, x in enumerate(rand_mem)) % FR
-    init_val = and_mle(rand_mem)
     g2 = r_hash * r_hash % FR
 
     def fingerprint(a, v, ts):
         return (ts * g2 + v * r_hash + a - r_multiset) % FR
 
-    for i in range(c):
+    for k in range(alpha):  # memory k reads chunk j of subtable sub
+        j, sub = strat.memory_to_dimension(k, c), strat.memory_to_subtable(k, c)
         h_init, h_read, h_write, h_final = (
-            claims_mem[2 * i], claims_ops[2 * i], claims_ops[2 * i + 1],
-            claims_mem[2 * i + 1])
-        dim, read, fin = hl["eval_dim"][i], hl["eval_read"][i], hl["eval_final"][i]
-        deref = hl["eval_derefs"][i]
+            claims_mem[2 * k], claims_ops[2 * k], claims_ops[2 * k + 1],
+            claims_mem[2 * k + 1])
+        dim, read, fin = hl["eval_dim"][j], hl["eval_read"][j], hl["eval_final"][j]
+        deref = hl["eval_derefs"][k]
+        init_val = strat.subtable_mle(sub, rand_mem)
         _require(fingerprint(init_addr, init_val, 0) == h_init, "init fingerprint")
         _require(fingerprint(dim, deref, read) == h_read, "read fingerprint")
         _require(fingerprint(dim, deref, read + 1) == h_write, "write fingerprint")

@@ -1,4 +1,5 @@
-"""A run end to end on the CPU at a tiny size: the reference agrees with the
+"""A run end to end on the CPU at a tiny size, for the AND and the LT
+strategy, each configuration given as a dict: the reference agrees with the
 port, each planted fault and the control make `correct` false, a run
 without a card prints no result, and nothing the benchmark runs loads JAX
 or the JAX package (the reference loads nothing of the port either)."""
@@ -21,14 +22,16 @@ ROOT = manifest.ROOT
 SEED = 2**31 + 4242
 TINY = {"name": "tiny", "strategy": "and", "C": 2, "log_M": 8,
         "curve_path": "fused", "transcript": "device"}
+# 2C = 4 memories and a collation of degree C, from a dict and no file
+TINY_LT = {**TINY, "name": "tiny-lt", "strategy": "lt"}
 E2E = [{"name": n, "unit": "s"} for n in
        ("prover_s", "prove_s", "verify_s", "setup_s")]
 
 
-def _cell(law="uniform", s=64):
-    wl = {"config": "tiny", "s": s, "law": law,
+def _cell(config=TINY, law="uniform", s=64):
+    wl = {"config": config["name"], "s": s, "law": law,
           "params": {"operand_bits": 8}}
-    return manifest.Cell("tiny", 1, TINY, wl, E2E, [])
+    return manifest.Cell(config["name"], 1, config, wl, E2E, [])
 
 
 def _sub(code: str) -> subprocess.CompletedProcess:
@@ -36,9 +39,15 @@ def _sub(code: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=300)
 
 
+@pytest.fixture(scope="module", params=[TINY, TINY_LT],
+                ids=lambda c: c["strategy"])
+def config(request):
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def prog():
-    return harness.Program(TINY, _cell().workload, "cpu")
+def prog(config):
+    return harness.Program(config, _cell(config).workload, "cpu")
 
 
 def test_run_without_a_card_exits_nonzero_and_prints_nothing():
@@ -51,9 +60,9 @@ def test_run_without_a_card_exits_nonzero_and_prints_nothing():
     assert proc.stdout.strip() == ""
 
 
-def test_reference_agrees_with_the_port_on_cpu():
+def test_reference_agrees_with_the_port_on_cpu(config):
     for law in ("uniform", "operand-bytes"):
-        result, code = run(_cell(law), SEED, 0.5, False, device="cpu")
+        result, code = run(_cell(config, law), SEED, 0.5, False, device="cpu")
         assert code == 0 and result["correct"], result
         assert result["attempted"] >= 1 and result["failed"] == 0
         assert set(result["metrics"]) == {m["name"] for m in E2E}
@@ -64,8 +73,8 @@ def test_reference_agrees_with_the_port_on_cpu():
 
 
 @pytest.mark.parametrize("fault", faults.FAULTS)
-def test_each_fault_makes_correct_false(fault):
-    cell = _cell()
+def test_each_fault_makes_correct_false(fault, config):
+    cell = _cell(config)
     with faults.planted(fault):
         result, code = run(cell, SEED, 0.5, False, device="cpu")
     assert code == 0 and result["correct"] is False, result
@@ -90,17 +99,17 @@ def test_judged_passes_are_a_seeded_uniform_sample():
     assert np.all(np.abs(counts / 3000 - 2 / 6) < 0.04), counts
 
 
-def test_control_readings(prog):
-    sound = reading(prog, _cell(), SEED, None)
+def test_control_readings(prog, config):
+    sound = reading(prog, _cell(config), SEED, None)
     assert sound["raised"] is None
     assert all(sound[k] == 0 for k in check.LIMITS)
-    low = reading(prog, _cell(), SEED + 1, "lowprec")
+    low = reading(prog, _cell(config), SEED + 1, "lowprec")
     assert any(low[k] > check.LIMITS[k] for k in check.LIMITS)
 
 
-def test_judge_catches_an_answer_altered_where_it_is_produced(prog):
-    cell = _cell()
-    batch = traffic.make_batch(cell.workload, TINY, SEED, 7)
+def test_judge_catches_an_answer_altered_where_it_is_produced(prog, config):
+    cell = _cell(config)
+    batch = traffic.make_batch(cell.workload, config, SEED, 7)
     dense, comm = prog.densify_commit(batch.indices)
     tables = [dense.combined_l_variate_polys.z.numpy().copy(),
               dense.combined_log_m_variate_polys.z.numpy().copy()]
@@ -111,7 +120,8 @@ def test_judge_catches_an_answer_altered_where_it_is_produced(prog):
            "proof": harness.to_plain(proof)}
 
     def judge(o):
-        return check.judge(batch.indices, batch.r, TINY["log_M"], o,
+        return check.judge(batch.indices, batch.r, config["log_M"],
+                           config["strategy"], o,
                            harness.TRANSCRIPT_LABEL, harness.GENS_LABEL,
                            np.random.default_rng(1), [])
 
@@ -151,17 +161,25 @@ def test_benchmark_loads_no_jax_nor_the_jax_package():
 
 
 def test_reference_loads_nothing_of_the_port():
+    ref = os.path.join(ROOT, "benchmark", "reference")
+    names = sorted(n[:-3] for n in os.listdir(os.path.join(ref, "strategies"))
+                   if n.endswith(".py") and n != "__init__.py")
+    assert {"and", "lt"} <= set(names)
     code = ("import sys\n"
             "import benchmark.reference.check, benchmark.traffic\n"
+            "from benchmark.reference import strategies\n"
+            f"for name in {names!r}:\n"
+            "    strategies.strategy(name)\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'lasso_tpu_torch', 'lasso_tpu', 'jax', 'torch'}))\n")
     proc = _sub(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    ref = os.path.join(ROOT, "benchmark", "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            with open(os.path.join(ref, name)) as f:
+    for folder, _, files in os.walk(ref):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(folder, name)) as f:
                 tree = ast.parse(f.read())
             for node in ast.walk(tree):
                 mods = ([a.name for a in node.names] if isinstance(node, ast.Import)

@@ -11,12 +11,12 @@ input, and the same seed gives the same batches.
 
 from __future__ import annotations
 
-import importlib.util
 import os
 from dataclasses import dataclass
 
 import numpy as np
 
+from benchmark import manifest
 from benchmark.reference.curve import FR
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -30,14 +30,7 @@ class Batch:
 
 def law(name: str):
     """The sampler module of a law, found by its file name."""
-    path = os.path.join(_HERE, f"{name}.py")
-    if not os.path.isfile(path):
-        raise FileNotFoundError(f"no traffic law {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark.traffic._law_{name.replace('-', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return manifest.by_name(_HERE, name, "benchmark.traffic")
 
 
 def rng_for(seed: int, pass_index: int, stream: int) -> np.random.Generator:
