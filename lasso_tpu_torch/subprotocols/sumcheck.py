@@ -222,8 +222,12 @@ def _prove_arbitrary_device(zs, comb, degree: int, num_rounds: int, dt):
     round's coefficients and challenge, then the final evals; bound zs)."""
     rows = []
     for _ in range(num_rounds):
-        coeffs, r = _device_round(dt, _round_evals(zs, comb, degree), degree)
-        zs = _bind_top(zs, r)
+        with span("Sumcheck.arbitrary_evals"):
+            evals = _round_evals(zs, comb, degree)
+        with span("Sumcheck.arbitrary_challenge"):
+            coeffs, r = _device_round(dt, evals, degree)
+        with span("Sumcheck.arbitrary_bind"):
+            zs = _bind_top(zs, r)
         rows += [coeffs, r[None]]
     rows.append(zs[:, 0])
     return torch.cat(rows), zs
@@ -294,7 +298,7 @@ def _host_rounds(zs, comb, degree: int, num_rounds: int, transcript,
     return zs
 
 
-@instrument("Sumcheck.prove")
+@instrument("Sumcheck.prove", sync=True)
 def prove_arbitrary(polys_stack, comb, degree: int, num_rounds: int, transcript,
                     mesh=None):
     """Arbitrary-degree sumcheck prover over stacked tables [alpha, n, W].

@@ -120,7 +120,7 @@ class Subtables:
             self.combined_poly.z, chis, self.strategy.num_memories,
             self.mesh))
 
-    @instrument("Subtables.commit")
+    @instrument("Subtables.commit", sync=True)
     def commit(self, gens: PolyCommitmentGens) -> "CombinedTableCommitment":
         comm, _ = commit_poly(self.combined_poly, gens)
         return CombinedTableCommitment(comm)

@@ -48,7 +48,7 @@ class LTSubtableStrategy(SubtableStrategy):
     def combine_lookups(self, vals, ops):
         """vals ordered LT[0], EQ[0], ..., LT[C-1], EQ[C-1]."""
         assert len(vals) == self.num_memories
-        acc = ops.mul(vals[0], ops.weight(1))
+        acc = vals[0]
         eq_prod = None
         for i in range(1, self.c):
             eq_prod = vals[2 * i - 1] if eq_prod is None else ops.mul(eq_prod, vals[2 * i - 1])

@@ -15,8 +15,9 @@ clock reads, two flag reads and two list appends.  It does not wait for
 the device.  Only a span opened with `sync=True` synchronizes the device
 before it closes, so that its time covers the kernels it queued; those are
 the spans whose time a per-layer metric reads from untraced passes
-(`Densify`, `BatchedGrandProductArgument.prove`, `DotProductProofLog.prove`),
-and they synchronize whether tracing is on or off.
+(`Densify`, `Subtables.commit`, `Sumcheck.prove`,
+`BatchedGrandProductArgument.prove`, `DotProductProofLog.prove`), and they
+synchronize whether tracing is on or off.
 
 Tracing is on while `LASSO_TPU_TRACE` is set to anything but `0` (read
 when a root span opens; it also echoes each span's close to stderr) or

@@ -1,8 +1,10 @@
 """End-to-end prove/verify of the port (lasso_tpu_torch) on the CPU.
 
-The proof and commitment bytes of every golden instance (AND/OR/XOR, LT,
-range check) must equal the JAX package's fixtures
-(tests/fixtures/golden_proofs.json, read as data), with the host transcript
+The proof and commitment bytes of every golden instance (AND/OR/XOR, LT
+at C = 4 and at C = 8, range check) must equal the JAX package's fixtures
+(tests/fixtures/golden_proofs.json, read as data, and, for instances the
+JAX package's own tests do not prove, tests/fixtures/torch_golden_proofs.json,
+which LASSO_TPU_REGEN_PORT_GOLDEN=1 recomputes with the JAX package), with the host transcript
 and with the device-resident one (LASSO_TPU_DEVICE_TRANSCRIPT=force, which
 takes the device paths on the CPU); verify accepts honest proofs and
 rejects tampered ones.  A mid-size AND instance, whose Hyrax commits take
@@ -18,6 +20,8 @@ C=2, M=64, s=1024 at D = 4.
 import hashlib
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -50,8 +54,17 @@ from lasso_tpu_torch.utils.serialize import (serialize_commitment,
 # oversubscribe the cores
 torch.set_num_threads(1)
 
-FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures",
-                        "golden_proofs.json")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures", "golden_proofs.json")
+# goldens of instances that the JAX package's own golden test
+# (tests/test_golden_proofs.py, which owns FIXTURES) does not prove: their
+# bytes come from the JAX package, proven in a fresh process by
+# _jax_entries, and are pinned here; LASSO_TPU_REGEN_PORT_GOLDEN=1 proves
+# them again and rewrites the file (lt_8d: about ten minutes on the CPU,
+# most of it XLA compiling the degree-9 sumcheck round)
+PORT_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_golden_proofs.json")
+PORT_GOLDEN = ("lt_8d",)
 
 
 def _log2(n):
@@ -91,15 +104,86 @@ GOLDEN = {
     "xor_4d": ("xor", 4, 16, 16, {}),
     "lt_4d": ("lt", 4, 16, 16, {}),
     "lt_4d_big_s": ("lt", 4, 16, 128, {}),
+    # LT at jolt-lt-s16's own C = 8 (16 memories, a degree-9 primary
+    # sumcheck), with 2-bit operand halves
+    "lt_8d": ("lt", 8, 16, 64, {}),
     "range_3d": ("range_check", 3, 256, 16, {"log_r": 40}),
 }
 
 
-def _check_golden(name, monkeypatch):
+# The JAX package's prove of each instance in argv[1] ({name: (strategy, C,
+# M, s, options)}), the same calls as tests/test_golden_proofs.py; prints
+# each one's entry as JSON.
+_JAX_PROVE = """
+import hashlib, json, sys
+import lasso_tpu.subtables.bitwise, lasso_tpu.subtables.lt
+import lasso_tpu.subtables.range_check
+from lasso_tpu.lasso.densified import DensifiedRepresentation
+from lasso_tpu.lasso.surge import (SparsePolyCommitmentGens,
+                                   SparsePolynomialEvaluationProof)
+from lasso_tpu.subtables.base import get_strategy
+from lasso_tpu.transcript.proof_transcript import ProofTranscript
+from lasso_tpu.transcript.random_tape import RandomTape
+from lasso_tpu.utils.fixtures import gen_indices, gen_random_point
+from lasso_tpu.utils.serialize import serialize_commitment, serialize_proof
+
+def log2(n):
+    return (n - 1).bit_length()
+
+out = {}
+for name, (st, c, m, s, opts) in json.loads(sys.argv[1]).items():
+    strategy = get_strategy(st, c, m, **opts)
+    nz = gen_indices(s, m, c)
+    r = gen_random_point(log2(s))
+    dense = DensifiedRepresentation(nz, log2(m), c)
+    gens = SparsePolyCommitmentGens.new(
+        b"gens_sparse_poly", c, s, strategy.num_memories, log2(m))
+    cb = serialize_commitment(dense.commit(gens))
+    pb = serialize_proof(SparsePolynomialEvaluationProof.prove(
+        dense, r, gens, strategy, ProofTranscript(b"example"),
+        RandomTape(b"proof")))
+    out[name] = {"proof_sha256": hashlib.sha256(pb).hexdigest(),
+                 "proof_len": len(pb),
+                 "commitment_sha256": hashlib.sha256(cb).hexdigest(),
+                 "commitment_len": len(cb)}
+print(json.dumps(out))
+"""
+
+
+def _jax_entries(names):
+    """The JAX package's golden entries of `names`, proven on the CPU in a
+    fresh process (compile cache off, XLA:CPU's LLVM optimizations off,
+    which leaves integer results unchanged)."""
+    env = dict(os.environ, LASSO_TPU_XLA_CACHE="off", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_backend_optimization_level=0 "
+                         "--xla_llvm_disable_expensive_passes=true")
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_PROVE,
+         json.dumps({name: GOLDEN[name] for name in names})],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=3600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def _goldens():
+    """Every golden's entry: the JAX package's fixtures and the port's
+    own, the latter proven again by the JAX package and rewritten first
+    when LASSO_TPU_REGEN_PORT_GOLDEN=1."""
+    if os.environ.get("LASSO_TPU_REGEN_PORT_GOLDEN") == "1":
+        entries = _jax_entries(PORT_GOLDEN)
+        with open(PORT_FIXTURES, "w") as f:
+            json.dump(entries, f, indent=2, sort_keys=True)
+            f.write("\n")
+    golden = {}
+    for path in (FIXTURES, PORT_FIXTURES):
+        with open(path) as f:
+            golden.update(json.load(f))
+    return golden
+
+
+def _check_golden(name, golden, monkeypatch):
     """The golden's bytes and verify, on the host transcript and then on
     the device-resident one."""
-    with open(FIXTURES) as f:
-        golden = json.load(f)[name]
     for route in ("0", "force"):
         monkeypatch.setenv("LASSO_TPU_DEVICE_TRANSCRIPT", route)
         proof, commitment, r, gens = _prove(*GOLDEN[name])
@@ -109,7 +193,7 @@ def _check_golden(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["and_4d", "or_4d", "xor_4d"])
 def test_golden_proof_bytes_and_verify(name, monkeypatch):
-    _check_golden(name, monkeypatch)
+    _check_golden(name, _goldens()[name], monkeypatch)
 
 
 # ranks of each golden's sharded prove: D = 8 meets the reference's
@@ -126,16 +210,15 @@ def test_lt_and_range_golden_proof_bytes_and_verify(monkeypatch):
     the dry run's instance (entry.dryrun_multichip) beside them: each must
     have the golden's bytes on every rank, and the single-device verifier
     accepts it."""
-    for name in ("lt_4d", "lt_4d_big_s", "range_3d"):
-        _check_golden(name, monkeypatch)
+    golden = _goldens()
+    for name in ("lt_4d", "lt_4d_big_s", "lt_8d", "range_3d"):
+        _check_golden(name, golden[name], monkeypatch)
 
     monkeypatch.delenv("LASSO_TPU_DEVICE_TRANSCRIPT")  # the ranks' default
     specs = [Spec(st, c, m, s, tuple(opts.items()))
              for st, c, m, s, opts in GOLDEN.values()]
     specs += [Spec("and", 4, 16, 16, fused=False), dryrun_spec(SHARDED_D)]
     results = agreed(spawn(prove_instances, SHARDED_D, "gloo", "cpu", specs))
-    with open(FIXTURES) as f:
-        golden = json.load(f)
     for name, res in zip(list(GOLDEN) + ["and_4d"], results):
         assert _bytes_entry(res["proof"], res["commitment"]) == golden[name], \
             name

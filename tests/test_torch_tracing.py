@@ -4,11 +4,14 @@ A small AND instance is proven on the device-transcript route with tracing
 off, with LASSO_TPU_TRACE=1 and under the CPU profiler.  Its proof and
 commitment bytes are pinned here (sha256 and length, as read with tracing
 off) and must not depend on tracing.  Off, no dispatch mode is active
-inside a span, every span's `counts` stays empty, and only the three spans
+inside a span, every span's `counts` stays empty, and only the five spans
 whose time a per-layer metric reads synchronize the device.  Traced, two
-proves after a first count the same in every span, and the chart merges
-same-named siblings with their counts.  Under the profiler every span's name
-is a `record_function` range.  The root store stays bounded without a reset.
+proves after a first count the same in every span, the primary sumcheck's
+rounds open one span of each phase a round, none of which waits for the
+device, each synchronizing span counts its one sync and no other span
+counts one, and the chart merges same-named siblings with their counts.
+Under the profiler every span's name is a `record_function` range.  The
+root store stays bounded without a reset.
 """
 
 import hashlib
@@ -45,8 +48,11 @@ PINNED = {
         "8e8070e720904953a7e6411ec54fd099c175715faa0084ca748df0491ef335c0",
         424),
 }
-SYNCED = {"Densify", "BatchedGrandProductArgument.prove",
-          "DotProductProofLog.prove"}
+SYNCED = {"Densify", "Subtables.commit", "Sumcheck.prove",
+          "BatchedGrandProductArgument.prove", "DotProductProofLog.prove"}
+# the phases of each round of the primary sumcheck on the device route
+ARBITRARY = ("Sumcheck.arbitrary_evals", "Sumcheck.arbitrary_challenge",
+             "Sumcheck.arbitrary_bind")
 
 
 def _digest(b: bytes):
@@ -127,6 +133,23 @@ def test_prove_bytes_and_counts_under_tracing(mode, monkeypatch, capsys):
         layers = [ln for ln in chart if " GP.layer x" in ln]
         assert layers and all("ops=" in ln for ln in layers)
         assert sum(" Sumcheck.bind" in ln for ln in chart) <= len(layers)
+        # one span of each phase a round of the primary sumcheck (log2 s
+        # rounds), none of which waits for the device
+        (sumcheck,) = [s for s in _walk([prove])
+                       if s.name == "Sumcheck.prove"]
+        for name in ARBITRARY:
+            phases = [s for s in sumcheck.children if s.name == name]
+            assert len(phases) == (S - 1).bit_length(), name
+            assert all(tracing.inclusive_counts(s).get("syncs", 0) == 0
+                       for s in phases), name
+        # a card in use, as far as the spans can tell: each synchronizing
+        # span counts its one sync, and no other span counts one
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+        synced = _prove()[2]
+        assert {s.name for s in _walk(synced)} >= SYNCED
+        assert all(s.counts.get("syncs", 0) == (s.name in SYNCED)
+                   for s in _walk(synced))
     else:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             proof, comm, roots = _prove()
